@@ -1,0 +1,172 @@
+"""The slice: CAB MSZIP extraction through the port's driver and engine.
+
+Cabinets come from the JAX package's own writer. The port's
+``engine="cuda"`` runs here with ``device="cpu"``, i.e. on the kernels'
+plain versions, and is held to ``libmspack_tpu``'s ``engine="tpu"`` (the
+Pallas kernels in interpret mode) and ``engine="scalar"``: equal bytes,
+and the same error class on a corrupt frame.
+"""
+import os
+import subprocess
+import sys
+import zlib
+
+import pytest
+import torch
+
+from libmspack_tpu.compress import cab_c, mszip_c
+from libmspack_tpu.formats.cab import CabDecompressor as JaxCabDecompressor
+from libmspack_tpu.system import BytesSink
+
+import libmspack_tpu_torch as lt
+from libmspack_tpu_torch.ops import cuda_inflate as ci
+from libmspack_tpu_torch.parallel.cuda_pipeline import CudaMszipEngine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the cabinet of test_parallel.py::test_tpu_engine_cab_extract_matches_scalar
+# (one folder, two frames) plus a single-frame folder
+FILES = [("a.txt", b"the quick brown fox jumps " * 700),
+         ("b.txt", bytes(range(256)) * 130)]
+SINGLE = [("c.txt", b"a second folder of one frame " * 30)]
+
+
+def two_folder_cab():
+    return cab_c.write_cab(folders=[cab_c.FolderSpec(FILES, "mszip"),
+                                    cab_c.FolderSpec(SINGLE, "mszip")])
+
+
+def extract_all(d, blob):
+    cab = d.open(blob)
+    got = {}
+    for f in cab.files:
+        sink = BytesSink()
+        d.extract(f, sink)
+        got[f.filename] = sink.getvalue()
+    return got
+
+
+def corrupt_first_frame(blob):
+    """The cabinet with its first CFDATA block's deflate data made
+    invalid (block type 3) and its checksum cleared, so that the block
+    reads fine and phase A flags the frame."""
+    cab = JaxCabDecompressor(engine="scalar").open(blob)
+    off = cab.folders[0].data[0].offset
+    resv = cab.block_resv
+    b = bytearray(blob)
+    b[off:off + 4] = b"\0\0\0\0"
+    payload = off + 8 + resv
+    assert b[payload:payload + 2] == b"CK"
+    b[payload + 2] = 0x07
+    return bytes(b)
+
+
+def test_cuda_engine_matches_tpu_and_scalar_engines():
+    blob = two_folder_cab()
+    want = dict(FILES + SINGLE)
+    assert extract_all(JaxCabDecompressor(engine="tpu"), blob) == want
+    assert extract_all(JaxCabDecompressor(engine="scalar"), blob) == want
+    before = ci.LAUNCHES["plain"]
+    d = lt.create_cab_decompressor(engine="cuda", device="cpu")
+    assert extract_all(d, blob) == want
+    assert ci.LAUNCHES["plain"] > before
+    assert not d.cuda_engine.declines and not d.fallback_reasons
+
+
+@pytest.mark.parametrize("phase_b", ["host", "device"])
+def test_engine_folders_in_one_call(phase_b):
+    datas = [b"engine folder one " * 4000, bytes(range(256)) * 300,
+             b"tiny"]
+    folders = []
+    for data in datas:
+        frames = [f[2:] for f in mszip_c.compress_frames(data)]
+        sizes = [min(32768, len(data) - i * 32768)
+                 for i in range(len(frames))]
+        folders.append((frames, sizes))
+    eng = CudaMszipEngine(device="cpu", phase_b=phase_b)
+    assert eng.decode_folders(folders) == datas
+    assert not eng.declines
+    assert {"upload_ms", "k1_ms", "total_ms"} <= set(eng.timings)
+
+
+def test_device_phase_b_declines_partial_mid_frame():
+    # a folder whose first frame is short: the host resolver chains it
+    # right; the device rule declines it, counted
+    raw0, raw1 = b"short first frame " * 10, b"second frame, " * 50
+    co0 = zlib.compressobj(9, zlib.DEFLATED, -15)
+    co1 = zlib.compressobj(9, zlib.DEFLATED, -15, 9,
+                           zlib.Z_DEFAULT_STRATEGY, raw0)
+    frames = [co0.compress(raw0) + co0.flush(),
+              co1.compress(raw1) + co1.flush()]
+    eng = CudaMszipEngine(device="cpu", phase_b="device")
+    outs = eng.decode_folders([(frames, [len(raw0), len(raw1)])])
+    assert outs == [raw0 + raw1]
+    assert dict(eng.declines) == {"partial mid-folder frame": 1}
+
+
+def test_corrupt_frame_takes_counted_native_redecode():
+    blob = corrupt_first_frame(cab_c.write_cab(
+        files=[("x.txt", b"corrupt frame test " * 60)], compression="mszip"))
+    errors = []
+    for d in (JaxCabDecompressor(engine="tpu"),
+              lt.create_cab_decompressor(engine="cuda", device="cpu")):
+        with pytest.raises(lt.MSPackError) as info:
+            extract_all(d, blob)
+        errors.append(type(info.value))
+    assert errors[0] is errors[1]
+    assert d.cuda_engine.declines["flagged lane"] == 1
+
+
+@pytest.mark.parametrize("compression", ["lzx", "quantum"])
+def test_lzx_and_quantum_folders_not_yet(compression):
+    blob = cab_c.write_cab(files=[("l.txt", b"later slice " * 100)],
+                           compression=compression)
+    d = lt.create_cab_decompressor(engine="cuda", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        extract_all(d, blob)
+
+
+def test_none_folder_takes_scalar_path():
+    files = [("n.txt", b"stored as is " * 100)]
+    blob = cab_c.write_cab(files=files, compression="none")
+    d = lt.create_cab_decompressor(engine="cuda", device="cpu")
+    assert extract_all(d, blob) == dict(files)
+    assert d.cuda_engine is None
+
+
+def test_cuda_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lt.create_cab_decompressor(engine="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        CudaMszipEngine()
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "import libmspack_tpu_torch as lt\n"
+        "from libmspack_tpu_torch.parallel import cuda_pipeline\n"
+        "from libmspack_tpu_torch import edge_cases, kernels\n"
+        "from libmspack_tpu.compress import cab_c\n"
+        "from libmspack_tpu.system import BytesSink\n"
+        "data = b'no jax here ' * 5000\n"
+        "blob = cab_c.write_cab(files=[('j.txt', data)], "
+        "compression='mszip')\n"
+        "d = lt.create_cab_decompressor(engine='cuda', device='cpu')\n"
+        "s = BytesSink()\n"
+        "d.extract(d.open(blob).files[0], s)\n"
+        "assert s.getvalue() == data\n"
+        "eng = cuda_pipeline.CudaMszipEngine('cpu', phase_b='device')\n"
+        "frames, sizes = d.collect_mszip_frames(d.open(blob).folders[0])\n"
+        "assert eng.decode_folders([([f[2:] for f in frames], sizes)])"
+        " == [data]\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
