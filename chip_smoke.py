@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero):
+Phases (any failure raises and exits non-zero; each prints its seconds):
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels (nvcc, sm_90a) and print the build time;
 3. K1 against its plain version on the edge-case batch
@@ -12,16 +12,33 @@ Phases (any failure raises and exits non-zero):
 4. K2 against its plain version on those traces: bytes and counts equal;
    then both kernels against their plain versions, and timed, at the
    shapes of the main path;
-5. the slice: bench.py's 96 MiB MSZIP cabinet (four 24 MiB folders, 3072
-   frames) extracted through create_cab_decompressor(engine="cuda"); the
-   bytes must equal the corpus, K1 must have launched, nothing may decline;
-   the JAX package's engine="native" on the same cabinet for comparison;
+5. bench.py's 96 MiB MSZIP cabinet (four 24 MiB folders, 3072 frames)
+   extracted through create_cab_decompressor(engine="cuda"); the bytes
+   must equal the corpus, K1 must have launched, nothing may decline; the
+   JAX package's engine="native" on the same cabinet for comparison;
 6. the same folders through CudaMszipEngine(phase_b="device"): bytes equal
-   and K2 launched.
+   and K2 launched;
+7. K3 against its plain version on the LZX edge batch
+   (libmspack_tpu_torch/lzx_edge_cases.py): counts, tokens and state
+   records equal, bytes equal to the reference codec's; and K3 in
+   segments through its state record against one launch;
+8. K3 against its plain version on one whole bench LZX folder (the CAB
+   driver's launch), and K3 alone on all four folders in one launch;
+9. bench.py's 96 MiB LZX cabinet (four 24 MiB folders, window 2^16)
+   through create_cab_decompressor(engine="cuda"): bytes equal, K3
+   launched, no decline; engine="native" beside it;
+10. the four folders through CudaLzxEngine in one call;
+11. a 16 MiB CHM from chm_c.write_chm (window 2^16, reset every 2 frames:
+    256 chunks): K3 against its plain version on its 256 chunks (the CHM
+    driver's launch), then the CHM through create_chm_decompressor(
+    engine="cuda"): bytes equal, K3 launched, one lane per chunk, no
+    decline; engine="native" beside it.
 
-The next-to-last line is a JSON object with each kernel's launches on the
-main path, its largest difference from the plain version and both times;
-the last line is {"ok": true, "device": {...}}. It imports no JAX.
+Each kernel's launch count is set to 0 just before its main path runs and
+read just after. The next-to-last line is a JSON object with each kernel's
+launches on the main path, its largest difference from the plain version
+and both times; the last line is {"ok": true, "device": {...}}. It imports
+no JAX.
 """
 from __future__ import annotations
 
@@ -117,23 +134,31 @@ def extract_all(d, blob):
     return b"".join(parts)
 
 
-def run(device_name="cuda", total_mb=96, edge_frame=32768):
+class Clock:
+    """Prints the seconds each phase took."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
+def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
+        chm_mb=16, reps=4):
     """All phases after the device check; returns the kernels' JSON.
 
-    ``run("cpu", total_mb=6, edge_frame=4096)`` rehearses every phase on
-    the CPU, with the kernels' plain versions, before a run on the card."""
-    import numpy as np
+    ``run("cpu", total_mb=6, edge_frame=4096, lzx_big=1 << 17, chm_mb=2,
+    reps=2)`` rehearses every phase on the CPU, with the kernels' plain
+    versions, before a run on the card."""
     import torch
 
-    import bench
-    import libmspack_tpu
-    from libmspack_tpu_torch import create_cab_decompressor, kernels
-    from libmspack_tpu_torch import edge_cases as ec
-    from libmspack_tpu_torch.ops import cuda_inflate as ci
-    from libmspack_tpu_torch.ops import cuda_resolve as cr
-    from libmspack_tpu_torch.parallel.cuda_pipeline import CudaMszipEngine
+    from libmspack_tpu_torch import kernels
 
     device = torch.device(device_name)
+    clock = Clock()
     # 2. build
     if device.type == "cuda":
         t0 = time.perf_counter()
@@ -143,6 +168,26 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
         for line in kernels.build_info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
+    clock.lap("build")
+    entries = mszip_phases(device, total_mb, edge_frame, reps, clock)
+    entries.append(lzx_phases(device, total_mb, lzx_big, chm_mb, reps,
+                              clock))
+    return {"kernels": entries}
+
+
+def mszip_phases(device, total_mb, edge_frame, reps, clock):
+    """Phases 3-6 (MSZIP): K1 and K2 against their plain versions, the
+    MSZIP cabinet through the driver and through CudaMszipEngine."""
+    import numpy as np
+    import torch
+
+    import bench
+    import libmspack_tpu
+    from libmspack_tpu_torch import create_cab_decompressor
+    from libmspack_tpu_torch import edge_cases as ec
+    from libmspack_tpu_torch.ops import cuda_inflate as ci
+    from libmspack_tpu_torch.ops import cuda_resolve as cr
+    from libmspack_tpu_torch.parallel.cuda_pipeline import CudaMszipEngine
 
     # 3. K1 on the edge-case batch
     cases = ec.edge_case_batch(edge_frame, seed=0, variants=5)
@@ -158,6 +203,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
     flagged = [c.name for i, c in enumerate(cases) if int(cnt[0, i])]
     print(f"K1 edge batch: {len(cases)} frames equal to plain, flagged "
           f"{flagged}; kernel {ms:.3f} ms, plain {pms:.1f} ms")
+    clock.lap("3 K1 edge batch")
 
     # 4. K2 on the same traces (valid lanes; corrupt ones resolve nothing)
     sizes = np.array([len(c.raw) if c.raw is not None else 0
@@ -173,6 +219,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
             raise AssertionError(f"K2 edge batch: lane {c.name}")
     print(f"K2 edge batch: equal to plain; kernel {ms:.3f} ms, plain "
           f"{pms:.1f} ms")
+    clock.lap("4 K2 edge batch")
 
     # the main path's shapes: one folder per K1 launch (the driver), the
     # whole cabinet per K2 launch (phase 6)
@@ -222,11 +269,12 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
     print(f"K2 whole cabinet ({nframes} frames, {len(folders)} chains): "
           f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms, equal")
     del tok, litw, cnt, ob
+    clock.lap("4 K1, K2 at the main path's shapes")
 
     # 5. the slice through the driver
     ci.LAUNCHES["cuda"] = 0
     runs = []
-    for _ in range(4):
+    for _ in range(reps):
         d = create_cab_decompressor(engine="cuda", device=device)
         t0 = time.perf_counter()
         out = extract_all(d, blob)
@@ -249,7 +297,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
     print("engine=cuda phases of the last run (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(eng.timings.items())))
     nat = []
-    for _ in range(4):
+    for _ in range(reps):
         d = libmspack_tpu.create_cab_decompressor(engine="native")
         t0 = time.perf_counter()
         if extract_all(d, blob) != corpus:
@@ -257,6 +305,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
         nat.append(len(corpus) / (time.perf_counter() - t0) / 1e6)
     print(f"libmspack_tpu engine=native: cold {nat[0]:.1f} MB/s, warm best "
           f"{max(nat[1:]):.1f} MB/s")
+    clock.lap("5 MSZIP cabinet through the driver")
 
     # 6. device phase B over the whole cabinet, and host phase B likewise
     cr.LAUNCHES["cuda"] = 0
@@ -280,7 +329,8 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
                 else cr.LAUNCHES["plain"]
     if k2_launches < 1:
         raise AssertionError("K2 never launched on the main path")
-    return {"kernels": [
+    clock.lap("6 CudaMszipEngine, four folders")
+    return [
         {"name": "k1_inflate", "route": "cuda",
          "source": "libmspack_tpu_torch/csrc/inflate.cu",
          "replaces": "libmspack_tpu/ops/pallas_inflate.py:134",
@@ -290,7 +340,272 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768):
          "source": "libmspack_tpu_torch/csrc/resolve.cu",
          "replaces": "libmspack_tpu/ops/pallas_resolve.py:51",
          "launches": k2_launches, "max_abs_err": e2, "ms": k2_ms,
-         "plain_ms": k2_plain_ms}]}
+         "plain_ms": k2_plain_ms}]
+
+
+def k3_compare(cases, device):
+    """K3 on ``device`` and its plain version on one batch of a single
+    (window, DELTA) kind; returns (device results on the CPU, max abs
+    difference, ms, plain ms). Counts, tokens and state records must be
+    equal."""
+    import torch
+
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch.ops import cuda_lzx as cl
+
+    s, lens, tg, hs = le.inputs(cases)
+    wb, delta = cases[0].window_bits, cases[0].delta
+    tcap = max(1, int(tg.max()))
+    plain, plain_ms = timed(lambda: cl.lzx_phase_a_plain(
+        s, lens, tg, hs, wb, is_delta=delta, tcap=tcap), torch.device("cpu"))
+    args = [t.to(device) for t in (s, lens, tg, hs)]
+    dev, ms = timed(lambda: cl.lzx_phase_a(
+        *args, wb, is_delta=delta, tcap=tcap, return_state=True), device,
+        reps=3)
+    dev = tuple(t.cpu() for t in dev)
+    if not torch.equal(dev[2], plain[2]):
+        raise AssertionError("K3 counts differ from the plain version")
+    if not torch.equal(dev[3], plain[3]):
+        raise AssertionError("K3 state records differ from the plain "
+                             "version")
+    err = 0
+    for i in range(len(cases)):
+        n = int(plain[2][2, i])
+        for a, b in ((dev[0], plain[0]), (dev[1], plain[1])):
+            err = max(err, int((a[i, :n].long() - b[i, :n].long())
+                               .abs().max()) if n else 0)
+    return dev, err, ms, plain_ms
+
+
+def k3_segments(cases, device, seg):
+    """K3 in launches of <= seg bytes per lane through the state record
+    against one launch: equal bytes and equal final records."""
+    import torch
+
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch.ops import cuda_lzx as cl
+
+    s, lens, tg, hs = (t.to(device) for t in le.inputs(cases))
+    wb = cases[0].window_bits
+
+    def launch(targets, tcap, state):
+        return cl.lzx_phase_a(s, lens, targets.to(device), hs, wb, tcap=tcap,
+                              state=state, return_state=True)
+
+    one = launch(tg, max(c.out_len for c in cases), None)
+    tok, litw, state, launches = le.segmented(
+        launch, [c.out_len for c in cases], seg)
+    cnt1 = one[2].cpu().numpy()
+    got = le.resolve(cases, tok, litw, cnt1)
+    want = le.resolve(cases, one[0].cpu().numpy(), one[1].cpu().numpy(),
+                      cnt1)
+    if got != want or want != [c.raw for c in cases]:
+        raise AssertionError("K3 segments: bytes differ from one launch")
+    if not torch.equal(state.cpu(), one[3].cpu()):
+        raise AssertionError("K3 segments: records differ from one launch")
+    return launches
+
+
+def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock):
+    """Phases 7-11 (LZX): K3 against its plain version, the LZX cabinet
+    through the driver and through CudaLzxEngine, and a CHM through its
+    driver. Returns K3's entry of the kernels line."""
+    import torch
+
+    import bench
+    import libmspack_tpu
+    from libmspack_tpu.compress import chm_c
+    from libmspack_tpu.system import BytesSink
+    from libmspack_tpu_torch import (create_cab_decompressor,
+                                     create_chm_decompressor)
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch.ops import cuda_lzx as cl
+    from libmspack_tpu_torch.parallel.cuda_pipeline import CudaLzxEngine
+
+    def k3_count():
+        return cl.LAUNCHES["cuda" if device.type == "cuda" else "plain"]
+
+    # 7. K3 on the LZX edge batch, one launch per (window, DELTA) kind,
+    # and in segments through the state record
+    cases = le.lzx_edge_batch(seed=0, big=lzx_big)
+    e3 = 0
+    for (wb, delta), idx in le.groups(cases).items():
+        sub = [cases[i] for i in idx]
+        (tok, litw, cnt, _), e, ms, pms = k3_compare(sub, device)
+        e3 = max(e3, e)
+        got = le.resolve(sub, tok.numpy(), litw.numpy(), cnt.numpy())
+        if got != [c.raw for c in sub]:
+            raise AssertionError(f"K3 edge batch, window 2^{wb}: bytes")
+        print(f"K3 edge batch, window 2^{wb}{' DELTA' if delta else ''}: "
+              f"{len(sub)} streams ({sum(c.out_len for c in sub)} bytes) "
+              f"equal to plain and the reference codec, flagged "
+              f"{[c.name for c in sub if c.raw is None]}; kernel "
+              f"{ms:.3f} ms, plain {pms:.1f} ms")
+    for key, seg in (((16, False), 65536), ((15, False), 32768)):
+        sub = [cases[i] for i in le.groups(cases)[key]
+               if cases[i].raw is not None]
+        n = k3_segments(sub, device, seg)
+        print(f"K3 window 2^{key[0]}: {len(sub)} streams in {n} launches of "
+              f"{seg} bytes through the state record = one launch")
+    clock.lap("7 K3 edge batch")
+
+    # 8. the CAB driver's shape: one whole bench folder per launch
+    t0 = time.perf_counter()
+    corpus = bench.build_corpus(total_mb * MB)
+    blob = bench.build_cab(corpus, "lzx")
+    print(f"LZX cabinet: {len(corpus)} bytes in {len(blob)} bytes, built "
+          f"in {time.perf_counter() - t0:.2f} s")
+    probe = libmspack_tpu.create_cab_decompressor()
+    pcab = probe.open(blob)
+    folders = []
+    for fol in pcab.folders:
+        blocks, fsizes = probe.collect_raw_blocks(fol)
+        folders.append(le.LzxCase("folder", b"".join(blocks), sum(fsizes),
+                                  (fol.comp_type >> 8) & 0x1F))
+    (tok, litw, cnt, _), e, k3_ms, k3_plain_ms = k3_compare(folders[:1],
+                                                            device)
+    e3 = max(e3, e)
+    if le.resolve(folders[:1], tok.numpy(), litw.numpy(),
+                  cnt.numpy()) != [corpus[:folders[0].out_len]]:
+        raise AssertionError("K3 whole folder: bytes differ")
+    print(f"K3 one whole {folders[0].out_len}-byte folder "
+          f"({len(folders[0].stream)} bytes in): kernel {k3_ms:.3f} ms, "
+          f"plain {k3_plain_ms:.1f} ms, equal")
+    del tok, litw, cnt
+    args = [t.to(device) for t in le.inputs(folders)]
+    (tok, litw, cnt), ms = timed(lambda: cl.lzx_phase_a(
+        *args, folders[0].window_bits,
+        tcap=max(f.out_len for f in folders)), device)
+    if (cnt[0] != 0).any():
+        raise AssertionError("K3 whole folders: flagged")
+    print(f"K3 {len(folders)} whole folders, one launch: kernel {ms:.3f} ms, "
+          f"{len(corpus) / ms / 1e3:.1f} MB/s")
+    del tok, litw, cnt, args
+    clock.lap("8 K3 at the main path's shapes")
+
+    # 9. the LZX cabinet through the driver (counts read around it)
+    cl.LAUNCHES["cuda"] = cl.LAUNCHES["plain"] = 0
+    runs = []
+    for _ in range(reps):
+        d = create_cab_decompressor(engine="cuda", device=device)
+        t0 = time.perf_counter()
+        out = extract_all(d, blob)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        if out != corpus:
+            raise AssertionError("engine=cuda LZX: extracted bytes differ")
+        eng = d.cuda_lzx_engine
+        if sum(eng.declines.values()) or d.fallback_reasons:
+            raise AssertionError(f"declines {dict(eng.declines)}, "
+                                 f"fallbacks {d.fallback_reasons}")
+    k3_launches = k3_count()
+    if k3_launches < 1:
+        raise AssertionError("K3 never launched on the CAB LZX path")
+    mbs = [len(corpus) / t / 1e6 for t in runs]
+    print(f"engine=cuda LZX: {len(folders)} folders, cold {mbs[0]:.1f} MB/s,"
+          f" warm best {max(mbs[1:]):.1f} MB/s, K3 launches {k3_launches}")
+    print("engine=cuda LZX phases of the last run (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(eng.timings.items())))
+    nat = []
+    for _ in range(reps):
+        d = libmspack_tpu.create_cab_decompressor(engine="native")
+        t0 = time.perf_counter()
+        if extract_all(d, blob) != corpus:
+            raise AssertionError("engine=native LZX: bytes differ")
+        nat.append(len(corpus) / (time.perf_counter() - t0) / 1e6)
+    print(f"libmspack_tpu engine=native LZX: cold {nat[0]:.1f} MB/s, warm "
+          f"best {max(nat[1:]):.1f} MB/s")
+    clock.lap("9 LZX cabinet through the driver")
+
+    # 10. CudaLzxEngine on all the folders in one call
+    for _ in range(2):
+        eng = CudaLzxEngine(device)
+        t0 = time.perf_counter()
+        outs = eng.decode_streams([f.stream for f in folders],
+                                  [f.out_len for f in folders],
+                                  folders[0].window_bits)
+        dt = time.perf_counter() - t0
+        if outs is None or b"".join(outs) != corpus or \
+                sum(eng.declines.values()):
+            raise AssertionError(f"CudaLzxEngine: bytes or declines "
+                                 f"{dict(eng.declines)}")
+    print(f"CudaLzxEngine, {len(folders)} folders in one call: "
+          f"{len(corpus) / dt / 1e6:.1f} MB/s warm; phases (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(eng.timings.items())))
+    clock.lap("10 CudaLzxEngine, all folders")
+
+    # 11. a CHM through its driver: one K3 lane per reset-interval chunk
+    t0 = time.perf_counter()
+    files = [(f"/topic{i}.html", corpus[i * MB:(i + 1) * MB])
+             for i in range(chm_mb)]
+    content = dict(files)
+    chm = chm_c.write_chm(files)
+    plan = libmspack_tpu.create_chm_decompressor()
+    chunks, csizes, cwb = plan.sec1_chunk_plan(plan.open(chm))
+    total = chm_mb * MB
+    print(f"CHM: {total} bytes in {len(chm)} bytes, {len(chunks)} "
+          f"reset chunks, window 2^{cwb}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    # the CHM driver's launch: all the chunks, one lane each
+    ccases = [le.LzxCase("chunk", c, n, cwb) for c, n in zip(chunks, csizes)]
+    (tok, litw, cnt, _), e, ms, pms = k3_compare(ccases, device)
+    e3 = max(e3, e)
+    got = le.resolve(ccases, tok.numpy(), litw.numpy(), cnt.numpy())
+    if None in got or b"".join(got) != corpus[:total]:
+        raise AssertionError("K3 CHM chunks: bytes differ")
+    print(f"K3 CHM chunks ({len(chunks)} lanes): kernel {ms:.3f} ms, plain "
+          f"{pms:.1f} ms, equal")
+    del tok, litw, cnt
+
+    def chm_extract(c):
+        """{name: bytes} of every section-1 file (directory order)."""
+        h = c.open(chm)
+        out = {}
+        for f in h.files:
+            sink = BytesSink()
+            c.extract(f, sink)
+            out[f.filename] = sink.getvalue()
+        return out
+
+    cl.LAUNCHES["cuda"] = cl.LAUNCHES["plain"] = 0
+    runs = []
+    for _ in range(reps):
+        c = create_chm_decompressor(engine="cuda", device=device)
+        t0 = time.perf_counter()
+        out = chm_extract(c)
+        runs.append(time.perf_counter() - t0)
+        eng = c.cuda_engine
+        if out != content:
+            raise AssertionError("engine=cuda CHM: bytes differ")
+        if sum(eng.declines.values()) or c.fallback_reasons or \
+                eng.lanes < len(chunks):
+            raise AssertionError(f"CHM: declines {dict(eng.declines)}, "
+                                 f"fallbacks {c.fallback_reasons}, lanes "
+                                 f"{eng.lanes}")
+    chm_launches = k3_count()
+    if chm_launches < 1:
+        raise AssertionError("K3 never launched on the CHM path")
+    mbs = [total / t / 1e6 for t in runs]
+    print(f"engine=cuda CHM: {eng.lanes} lanes, cold {mbs[0]:.1f} MB/s, "
+          f"warm best {max(mbs[1:]):.1f} MB/s, K3 launches {chm_launches}")
+    print("engine=cuda CHM phases of the last run (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(eng.timings.items())))
+    nat = []
+    for _ in range(reps):
+        c = libmspack_tpu.create_chm_decompressor(engine="native")
+        t0 = time.perf_counter()
+        if chm_extract(c) != content:
+            raise AssertionError("engine=native CHM: bytes differ")
+        nat.append(total / (time.perf_counter() - t0) / 1e6)
+    print(f"libmspack_tpu engine=native CHM: cold {nat[0]:.1f} MB/s, warm "
+          f"best {max(nat[1:]):.1f} MB/s")
+    clock.lap("11 CHM through the driver")
+    return {"name": "k3_lzx", "route": "cuda",
+            "source": "libmspack_tpu_torch/csrc/lzx.cu",
+            "replaces": "libmspack_tpu/ops/pallas_lzx.py:99",
+            "launches": k3_launches, "max_abs_err": e3, "ms": k3_ms,
+            "plain_ms": k3_plain_ms}
 
 
 def main() -> int:

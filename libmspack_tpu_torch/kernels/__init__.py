@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1 inflate, K2 resolve).
+"""Build and load the port's CUDA kernels (K1 inflate, K2 resolve, K3 LZX).
 
 The sources in ``libmspack_tpu_torch/csrc`` are compiled at first use by
 ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
@@ -8,8 +8,10 @@ sources, so an edit rebuilds and an unchanged tree reuses the last build.
 Nothing here runs at import time: this module imports on hosts without a
 CUDA toolkit, and only ``lib()`` needs one.
 
-``host_twin()`` builds the per-stream DEFLATE core (``deflate_core.cuh``)
-with g++ instead, for the tests: the same C++ the kernel runs, on the CPU.
+``host_twin()`` and ``host_twin_lzx()`` build the per-stream cores
+(``deflate_core.cuh``, ``lzx_core.cuh``) with g++ instead, for the tests:
+the same C++ the kernels run, on the CPU. Each twin is keyed by its own
+header's sha256.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ _SIGNATURES = {
     "msp_k1_inflate": [_P, _I64, _P, _P, _I, _P, _P, ctypes.c_int32, _P,
                        _I, _P],
     "msp_k2_resolve": [_P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P],
+    "msp_k3_lzx": [_P, _I64, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                   ctypes.c_int32, _P, _P],
 }
 
 _lib = None
@@ -103,25 +107,44 @@ def lib():
         fn.restype = ctypes.c_int
     handle.msp_cuda_error_string.argtypes = [_I]
     handle.msp_cuda_error_string.restype = ctypes.c_char_p
+    handle.msp_k3_state_bytes.argtypes = []
+    handle.msp_k3_state_bytes.restype = _I64
     _lib = handle
     return _lib
 
 
-def host_twin():
-    """g++ build of deflate_core.cuh's host entry ``dc_inflate_host``
-    (tests only). Raises if g++ is missing or the build fails."""
+def _twin(header: str, define: str):
+    """g++ build of one core header's host entry points (tests only).
+    Raises if g++ is missing or the build fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    src = os.path.join(CSRC, "deflate_core.cuh")
-    so = os.path.join(BUILD_DIR, f"deflate_twin_{_tag([src])}.so")
+    src = os.path.join(CSRC, header)
+    stem = header.split("_")[0]
+    so = os.path.join(BUILD_DIR, f"{stem}_twin_{_tag([src])}.so")
     if not os.path.exists(so):
         _compile([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
-                  "-DDEFLATE_CORE_HOST_TWIN", "-x", "c++", src], so)
-    handle = ctypes.CDLL(so)
+                  f"-D{define}", "-x", "c++", src], so)
+    return ctypes.CDLL(so)
+
+
+def host_twin():
+    """The DEFLATE core's twin: ``dc_inflate_host``, K1's launch."""
+    handle = _twin("deflate_core.cuh", "DEFLATE_CORE_HOST_TWIN")
     handle.dc_inflate_host.argtypes = [_P, _I64, _P, _P, _I, _P, _P,
                                        ctypes.c_int32, _P]
     handle.dc_inflate_host.restype = ctypes.c_int
+    return handle
+
+
+def host_twin_lzx():
+    """The LZX core's twin: ``lz_decode_host``, K3's launch, and
+    ``lz_state_bytes``."""
+    handle = _twin("lzx_core.cuh", "LZX_CORE_HOST_TWIN")
+    handle.lz_decode_host.argtypes = _SIGNATURES["msp_k3_lzx"][:-1]
+    handle.lz_decode_host.restype = ctypes.c_int
+    handle.lz_state_bytes.argtypes = []
+    handle.lz_state_bytes.restype = _I64
     return handle
 
 

@@ -1,0 +1,344 @@
+"""A seeded batch of LZX streams that covers what K3 must get right:
+verbatim, aligned and uncompressed blocks (one entered after an odd bit
+count, one crossing a frame end at an odd byte), an empty LENGTH tree,
+multi-frame streams, windows 2^15, 2^16 and 2^21, an intel E8 header, a
+ring-window alias on a 2^15 window, LZX DELTA with reference data and the
+long-match escape, a stream asked for 0 bytes, and corrupt streams (bad
+block type, an over-subscribed pretree, a LENGTH symbol from an empty
+tree, an offset beyond the stream, an offset behind the window wrap and
+the frame's start).
+
+Streams come from the JAX package's encoder (``compress/lzx_e``, native or
+Python) and from a small block writer here, which can emit what the encoder
+never does: a chosen block type, R0-R2 set by an uncompressed block, a
+corrupt tree. Each valid case's bytes are the reference codec's
+(``codecs/lzx.py``) on the same stream. The tests and ``chip_smoke.py``
+feed this batch to K3 and to its plain version.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from libmspack_tpu.compress import lzx_e
+from libmspack_tpu.compress.lzx_c import LzxBitWriter
+
+FRAME = 32768
+
+
+@dataclass
+class LzxCase:
+    name: str
+    stream: bytes
+    out_len: int
+    window_bits: int
+    delta: bool = False
+    ref: bytes = b""            # DELTA reference data (window tail)
+    raw: bytes | None = None    # the reference codec's bytes; None: corrupt
+
+
+def scalar_decode(stream, out_len, window_bits, delta=False, ref=b""):
+    """The reference codec's bytes (E8 applied), or None on its error."""
+    from libmspack_tpu.codecs.lzx import LzxDecompressor
+    from libmspack_tpu.errors import MSPackError
+
+    pos = [0]
+
+    def rd(n):
+        b = stream[pos[0]:pos[0] + n]
+        pos[0] += len(b)
+        return b
+
+    out = bytearray()
+    d = LzxDecompressor(rd, window_bits, 0, out_len, is_delta=delta)
+    if ref:
+        d.set_reference_data(ref)
+    try:
+        d.decompress(out_len, out.extend)
+    except MSPackError:
+        return None
+    return bytes(out)
+
+
+class _Writer:
+    """Hand-made LZX streams, block by block. Tokens are the encoder's:
+    ``(0, byte)``, ``(1, length, repeat index)``, ``(2, length, dist)``;
+    none may cross a 32 KiB frame end, where the writer realigns."""
+
+    def __init__(self, window_bits, intel_filesize=0):
+        self.w = LzxBitWriter()
+        self.enc = lzx_e.LzxEncoder(window_bits)
+        self.nmain = 256 + self.enc.num_offsets
+        self.prev_main = [0] * self.nmain
+        self.prev_len = [0] * lzx_e.NUM_SECONDARY
+        self.pos = 0
+        self.w.write_bits(1 if intel_filesize else 0, 1)
+        if intel_filesize:
+            self.w.write_bits(intel_filesize >> 16, 16)
+            self.w.write_bits(intel_filesize & 0xFFFF, 16)
+
+    def _advance(self, n):
+        self.pos += n
+        if self.pos % FRAME == 0 and not self.w.bit_aligned:
+            self.w.align16()
+
+    def block(self, tokens, aligned=False, empty_length=False):
+        """One VERBATIM (or ALIGNED) block. ``empty_length`` writes an
+        all-zero LENGTH tree whatever the tokens need."""
+        fmain, flen, falign, _, _ = self.enc._freqs(tokens)
+        mlens = lzx_e.make_lengths(fmain, lzx_e.TREE_LEN_LIMIT)
+        llens = ([0] * len(flen) if empty_length
+                 else lzx_e.make_lengths(flen, lzx_e.TREE_LEN_LIMIT))
+        alens = lzx_e.make_lengths(falign, lzx_e.ALIGNED_LEN_LIMIT)
+        if not any(alens):
+            alens = [3] * 8
+        w = self.w
+        w.write_bits(2 if aligned else 1, 3)
+        w.write_bits(sum(1 if t[0] == 0 else t[1] for t in tokens), 24)
+        if aligned:
+            for a in alens:
+                w.write_bits(a, 3)
+        lzx_e.write_lens(w, self.prev_main, mlens, 0, 256)
+        lzx_e.write_lens(w, self.prev_main, mlens, 256, self.nmain)
+        lzx_e.write_lens(w, self.prev_len, llens, 0, lzx_e.NUM_SECONDARY)
+        self.prev_main[:] = mlens
+        self.prev_len[:] = llens
+        codes = (lzx_e.canonical_codes(mlens), mlens,
+                 lzx_e.canonical_codes(llens), llens,
+                 lzx_e.canonical_codes(alens), alens)
+        for t in tokens:
+            self.enc._emit_tokens(w, [t], aligned, *codes)
+            self._advance(1 if t[0] == 0 else t[1])
+        return self
+
+    def stored(self, data, rs=(1, 1, 1)):
+        """One UNCOMPRESSED block (R0-R2 = ``rs``); odd length: pad."""
+        w = self.w
+        w.write_bits(3, 3)
+        w.write_bits(len(data), 24)
+        w.align16()
+        for r in rs:
+            w.write_bytes(r.to_bytes(4, "little"))
+        for k in range(len(data)):
+            w.write_bytes(data[k:k + 1])
+            self._advance(1)
+        if len(data) & 1:
+            w.write_bytes(b"\x00")
+        return self
+
+    def raw_bits(self, value, n):
+        self.w.write_bits(value, n)
+        return self
+
+    def getvalue(self):
+        if not self.w.bit_aligned:
+            self.w.align16()
+        return bytes(self.w.out)
+
+
+def _text(rng, n):
+    words = [b"cabinet", b"folder", b"window", b"aligned", b"verbatim",
+             b"pretree", b"offset", b"literal", b"the", b"of", b"lzx"]
+    out = bytearray()
+    while len(out) < n:
+        out += words[rng.randint(len(words))] + b" "
+    return bytes(out[:n])
+
+
+def _corpus(rng, n):
+    """Text, repeated noise and byte ramps, as the bench corpus mixes."""
+    parts, size = [], 0
+    while size < n:
+        for p in (_text(rng, 3000) * 3,
+                  rng.randint(0, 64, 2048, dtype=np.uint8).tobytes() * 4,
+                  bytes(np.arange(256, dtype=np.uint8)) * 8):
+            parts.append(p)
+            size += len(p)
+    return b"".join(parts)[:n]
+
+
+def _fill(n, length=257):
+    """Repeat-offset matches (R0 = 1) covering n bytes."""
+    toks = [(1, length, 0)] * (n // length)
+    if n % length:
+        toks.append((1, n % length, 0))
+    return toks
+
+
+def _lits(data):
+    return [(0, b) for b in data]
+
+
+def lzx_edge_batch(seed=0, big=1 << 17):
+    """The cases, valid ones first. ``big`` sizes the encoder-made streams
+    at windows 2^16 and 2^21 (the smoke run passes more)."""
+    rng = np.random.RandomState(seed)
+    cases = []
+
+    def add(name, stream, out_len, wb, delta=False, ref=b"", valid=True):
+        raw = scalar_decode(stream, out_len, wb, delta, ref)
+        if valid and raw is None:
+            raise AssertionError(f"{name}: the reference codec rejects it")
+        if not valid and raw is not None:
+            raise AssertionError(f"{name}: the reference codec accepts it")
+        cases.append(LzxCase(name, stream, out_len, wb, delta, ref, raw))
+
+    # window 2^15: small hand-made streams
+    t = _text(rng, 1500)
+    s = _Writer(15).block(_lits(t[:700]) + [(2, 40, 300)]
+                          + _lits(t[700:])).getvalue()
+    add("verbatim", s, 1540, 15)
+    toks = _lits(t[:400]) + [(2, 30, 100), (2, 12, 333), (0, 65),
+                             (2, 9, 64), (1, 9, 1)] + _lits(t[400:600])
+    s = _Writer(15).block(toks, aligned=True).getvalue()
+    add("aligned", s, 400 + 30 + 12 + 1 + 9 + 9 + 200, 15)
+    # a verbatim block of 37 tokens ends at some bit count; the stored
+    # block after it drops 1-16 bits, its odd length takes a pad byte
+    s = (_Writer(15).block(_lits(t[:37])).stored(t[37:338], (5, 6, 7))
+         .block(_lits(t[338:400]) + [(1, 20, 0), (1, 8, 1)]).getvalue())
+    add("stored_after_odd_bits", s, 400 + 28, 15)
+    s = _Writer(15).block(_lits(t[:300]) + [(2, 5, 17), (2, 3, 200),
+                                            (2, 8, 31)],
+                          empty_length=True).getvalue()
+    add("empty_length_tree", s, 316, 15)
+    e8 = bytearray(_text(rng, 4000))
+    for p in range(10, 3980, 97):
+        e8[p:p + 5] = b"\xe8" + int(rng.randint(0, 1 << 20)).to_bytes(4,
+                                                                  "little")
+    s = lzx_e.LzxEncoder(15, intel_filesize=3_000_000).compress(
+        bytes(e8))[0]
+    add("e8_header", s, len(e8), 15)
+    # three frames of long repeat matches, and blocks ending on frame ends
+    s = (_Writer(15).block(_lits(b"ab") + _fill(FRAME - 2))
+         .block(_fill(FRAME)).block(_fill(5000)).getvalue())
+    add("multi_frame", s, 2 * FRAME + 5000, 15)
+    # R2 = 33000 > window, set by a stored block; used from frame 2 on, a
+    # lap later, it reads the ring slot rewritten in this lap: one token
+    # at linear distance 33000 - 32768 (codecs/lzx.py:346-357)
+    s = (_Writer(15).stored(b"r", (1, 1, 33000))
+         .block(_fill(FRAME - 1) + _fill(FRAME)
+                + _lits(_text(rng, 300)) + [(1, 20, 2)] + _lits(b"end"))
+         .getvalue())
+    add("ring_alias", s, 2 * FRAME + 323, 15)
+    # a stored block that crosses the first frame's end 3 bytes in
+    s = (_Writer(15).block(_lits(b"x") + _fill(FRAME - 4))
+         .stored(_text(rng, 11)).block(_lits(b"tail") + [(1, 30, 0)])
+         .getvalue())
+    add("stored_odd_frame_cross", s, FRAME + 8 + 34, 15)
+
+    # DELTA, window 2^17: long matches into the reference data escape
+    base = _text(rng, 3000) + bytes(rng.randint(0, 256, 400, np.uint8))
+    new = bytearray(base)
+    for _ in range(4):
+        p = rng.randint(len(new) - 20)
+        new[p:p + 6] = bytes(rng.randint(0, 256, 6, np.uint8))
+    new = bytes(new) + b"appended " * 30
+    s = lzx_e.LzxEncoder(17, is_delta=True).compress(new, ref_data=base)[0]
+    add("delta_ref_escape", s, len(new), 17, delta=True, ref=base)
+
+    # encoder-made streams at windows 2^16 and 2^21, and stored blocks
+    corpus = _corpus(rng, big)
+    for wb in (16, 21):
+        s = lzx_e.compress(corpus, wb)[0]
+        add(f"corpus_w{wb}", s, len(corpus), wb)
+    noise = bytes(rng.randint(0, 256, 3 * FRAME + 777, np.uint8))
+    add("stored_frames_w16", lzx_e.compress(noise, 16)[0], len(noise), 16)
+    add("empty_output", cases[-1].stream, 0, 16)
+
+    # corrupt streams, window 2^15
+    add("bad_block_type", _Writer(15).raw_bits(0, 3).raw_bits(100, 24)
+        .getvalue(), 100, 15, valid=False)
+    w = _Writer(15).raw_bits(1, 3).raw_bits(100, 24)
+    for _ in range(20):
+        w.raw_bits(1, 4)   # twenty codes of length 1: over-subscribed
+    add("oversubscribed_pretree", w.getvalue(), 100, 15, valid=False)
+    s = _Writer(15).block(_lits(b"abc") + [(2, 11, 2)],
+                          empty_length=True).getvalue()
+    add("length_from_empty_tree", s, 14, 15, valid=False)
+    s = _Writer(15).block(_lits(b"abc") + [(2, 4, 100)]).getvalue()
+    add("offset_beyond_stream", s, 7, 15, valid=False)
+    # R2 = 33000 used in frame 1, 300 bytes in: the source lies behind the
+    # wrap and before the frame's start, which the reference rejects
+    # (codecs/lzx.py:337-341) even though 33000 bytes were decoded
+    s = (_Writer(15).stored(b"r", (1, 1, 33000))
+         .block(_fill(FRAME - 1) + _lits(_text(rng, 300)) + [(1, 20, 2)])
+         .getvalue())
+    add("offset_past_frame_start", s, FRAME + 320, 15, valid=False)
+    return cases
+
+
+def groups(cases):
+    """Lane indices grouped by (window_bits, delta): one launch each."""
+    out: dict = {}
+    for i, c in enumerate(cases):
+        out.setdefault((c.window_bits, c.delta), []).append(i)
+    return out
+
+
+def inputs(cases):
+    """K3's batch for the cases as CPU tensors: (streams, lens, target
+    output sizes, history budgets)."""
+    from .ops.cuda_lzx import pack_streams
+
+    s, lens = pack_streams([c.stream for c in cases])
+    tg = torch.tensor([c.out_len for c in cases], dtype=torch.int32)
+    hs = torch.tensor([len(c.ref) for c in cases], dtype=torch.int32)
+    return s, lens, tg, hs
+
+
+def segmented(launch, totals, seg):
+    """Decode in launches of <= seg output bytes per lane through the state
+    record. ``launch(targets, tcap, state)`` runs K3 (or its plain version
+    or twin) with ``state`` None the first time and returns ``(tok, litw,
+    cnt, state)``. Returns each lane's tokens of all launches, concatenated,
+    as int32 numpy ``(tok, litw)``, the last state and the launch count;
+    raises AssertionError where a lane stops short of its target."""
+    from .parallel.cuda_pipeline import segment_targets
+
+    toks = [[] for _ in totals]
+    lits = [[] for _ in totals]
+    state = None
+    launches = 0
+    for _, targets in segment_targets(totals, seg):
+        tok, litw, cnt, state = launch(
+            torch.tensor(targets, dtype=torch.int32), seg, state)
+        launches += 1
+        tok, litw, cnt = tok.cpu(), litw.cpu(), cnt.cpu()
+        if (cnt[0] != 0).any() or not np.array_equal(cnt[1].numpy(),
+                                                     targets):
+            raise AssertionError("a lane stopped short of its segment")
+        for i in range(len(totals)):
+            k = int(cnt[2, i])
+            toks[i] += tok[i, :k].tolist()
+            lits[i] += litw[i, :k].tolist()
+    T = max(1, max(len(t) for t in toks))
+    tok = np.full((len(totals), T), -1, np.int32)
+    litw = np.zeros((len(totals), T), np.int32)
+    for i in range(len(totals)):
+        tok[i, :len(toks[i])] = toks[i]
+        litw[i, :len(lits[i])] = lits[i]
+    return tok, litw, state, launches
+
+
+def resolve(cases, tok, litw, cnt):
+    """Resolve each lane's trace with the engine's host phase B
+    (``cuda_pipeline.resolve_lzx``), intel E8 translation included.
+
+    ``cases`` share one window; ``tok``, ``litw``: int32 numpy ``(L, T)``;
+    ``cnt``: the ``(8, L)`` counts. Returns a list of bytes, or None where
+    the lane is flagged or the resolver fails."""
+    from .parallel.cuda_pipeline import resolve_lzx, window_tails
+
+    wb = cases[0].window_bits
+    out = []
+    for i, c in enumerate(cases):
+        if cnt[0, i] != 0 or cnt[1, i] != c.out_len:
+            out.append(None)
+            continue
+        got = resolve_lzx(tok[i:i + 1], litw[i:i + 1], [c.out_len],
+                          cnt[4, i:i + 1], cnt[5, i:i + 1], wb,
+                          window_tails([c.ref], wb), n_threads=1)
+        out.append(None if got is None else got[0].tobytes())
+    return out

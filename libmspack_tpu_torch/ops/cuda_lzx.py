@@ -1,0 +1,535 @@
+"""K3: LZX phase A — one token trace per stream, with resumable state.
+
+PyTorch counterpart of ``libmspack_tpu/ops/pallas_lzx.py``. A batch is an
+``(L, nbytes)`` uint8 tensor of independent LZX streams (a CAB folder, a
+CHM reset-interval chunk, an OAB DELTA block), their byte lengths, their
+target output positions and their history budgets (DELTA reference bytes
+before the stream; 0 otherwise). ``lzx_phase_a`` returns, on the streams'
+device:
+
+* ``tok``, ``litw``: int32 ``(L, tcap)``, lane-major, each lane's tokens of
+  this call compacted from column 0 in the TPU kernel's format
+  (``pallas_lzx.py:39-45``). Columns past the lane's count are undefined
+  on the GPU and NOP (-1) on the CPU.
+* ``cnt``: int32 ``(8, L)``. Row 0 err (0 ok, 1 bad data, 2 token cap),
+  row 1 output position reached, row 2 tokens written by this call, row 3
+  input bytes consumed, row 4 ``intel_started``, row 5 ``intel_filesize``.
+  Rows 0, 1, 4 and 5 mean what the TPU kernel's do. Row 3 is this port's
+  own cursor (bytes, from the stream's start), not the TPU kernel's
+  32-bit refill cursor.
+* with ``return_state=True`` or a ``state`` passed in, also ``state``:
+  uint8 ``(L, STATE_BYTES)``, each lane's whole decoder state
+  (``STATE_DTYPE``, the ``lz::State`` record of ``csrc/lzx_core.cuh``).
+  The decoder updates the record in place; passing it back with the same
+  streams resumes every lane where it stopped. Targets other than a
+  stream's total length must be multiples of 32 KiB.
+
+``tcap`` bounds the tokens per lane and call. Every token carries at least
+one output byte, so ``tcap`` = the bytes a call decodes is always enough.
+
+A CUDA tensor runs the hand-written kernel (``csrc/lzx.cu``); a CPU tensor
+runs ``lzx_phase_a_plain``, a straightforward Python decoder of the same
+format, counts and state record. ``LAUNCHES`` counts both.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .._device import resolve_device
+from .cuda_inflate import pack_streams
+
+TOK_NOP = -1
+TOK_LIT = 0x20000000
+TOK_MATCH = 0x40000000
+
+FRAME = 32768
+NPRE = 20
+NLEN = 250
+NALN = 8
+SAFETY = 64
+POSITION_SLOTS = (30, 32, 34, 36, 38, 42, 50, 66, 98, 162, 290)
+MAIN_MAX = 256 + (POSITION_SLOTS[-1] << 3)
+
+# the lz::State record of csrc/lzx_core.cuh, field for field
+STATE_DTYPE = np.dtype([
+    ("bitpos", "<i8"), ("outpos", "<i8"),
+    ("r0", "<u4"), ("r1", "<u4"), ("r2", "<u4"),
+    ("block_type", "<i4"), ("block_remaining", "<i4"),
+    ("block_length", "<i4"), ("header_read", "<i4"),
+    ("intel_started", "<i4"), ("intel_filesize", "<i4"),
+    ("length_empty", "<i4"), ("err", "<i4"), ("pad", "<i4"),
+    ("main_count", "<u2", (17,)), ("len_count", "<u2", (17,)),
+    ("aln_count", "<u2", (17,)),
+    ("main_sym", "<u2", (MAIN_MAX,)), ("len_sym", "<u2", (NLEN,)),
+    ("aln_sym", "<u2", (NALN,)),
+    ("main_lens", "u1", (MAIN_MAX + SAFETY,)),
+    ("len_lens", "u1", (NLEN + SAFETY,)), ("aln_lens", "u1", (NALN,)),
+], align=True)
+STATE_BYTES = STATE_DTYPE.itemsize
+_SCALARS = ("bitpos", "outpos", "r0", "r1", "r2", "block_type",
+            "block_remaining", "block_length", "header_read",
+            "intel_started", "intel_filesize", "length_empty", "err")
+
+LAUNCHES = {"cuda": 0, "plain": 0}
+
+__all__ = ["lzx_phase_a", "lzx_phase_a_plain", "pack_streams",
+           "from_jax_batch", "LAUNCHES", "STATE_BYTES", "STATE_DTYPE"]
+
+
+def from_jax_batch(stream_grid):
+    """``pallas_lzx.pack_streams``'s ``(W, SL, LN)`` uint32 word grid ->
+    ``(streams, lens)`` for all ``SL * LN`` lanes; each lane's length is
+    the whole padded row, which decodes the same since both read zeros
+    past a stream's end."""
+    g = np.asarray(stream_grid, np.uint32)
+    words = g.reshape(g.shape[0], -1).T.astype("<u4")
+    streams = np.ascontiguousarray(words).view(np.uint8)
+    lens = np.full(streams.shape[0], streams.shape[1], np.int32)
+    return torch.from_numpy(streams.copy()), torch.from_numpy(lens)
+
+
+def _check_batch(streams, lens, out_lens, hists, window_bits, is_delta,
+                 state):
+    if streams.dtype != torch.uint8 or streams.dim() != 2:
+        raise ValueError("streams must be a 2-D uint8 tensor")
+    if streams.stride(1) != 1:
+        raise ValueError("streams rows must be contiguous")
+    L = streams.shape[0]
+    for name, t in (("lens", lens), ("out_lens", out_lens),
+                    ("hists", hists)):
+        if t.dtype != torch.int32 or t.shape != (L,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 ({L},)")
+        if t.device != streams.device:
+            raise ValueError(f"{name} is on {t.device}, streams on "
+                             f"{streams.device}")
+    lo, hi = (17, 25) if is_delta else (15, 21)
+    if not lo <= window_bits <= hi:
+        raise ValueError(f"window_bits {window_bits} outside {lo}..{hi}")
+    if state is not None and (state.dtype != torch.uint8
+                              or state.shape != (L, STATE_BYTES)
+                              or not state.is_contiguous()
+                              or state.device != streams.device):
+        raise ValueError(f"state must be a contiguous uint8 "
+                         f"({L}, {STATE_BYTES}) on {streams.device}")
+    if L and streams.device.type == "cpu" and int(lens.max()) > \
+            streams.shape[1]:
+        raise ValueError("a stream length exceeds the row width")
+
+
+def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
+                is_delta=False, tcap, state=None, return_state=False,
+                device=None):
+    """Phase A on a batch (see the module docstring). ``device`` moves the
+    batch there first; by default it runs where ``streams`` lies. A CUDA
+    tensor launches K3 or raises."""
+    if device is not None:
+        dev = resolve_device(device)
+        streams, lens, out_lens, hists = (
+            t.to(dev) for t in (streams, lens, out_lens, hists))
+        if state is not None:
+            state = state.to(dev)
+    _check_batch(streams, lens, out_lens, hists, window_bits, is_delta,
+                 state)
+    want_state = return_state or state is not None
+    if streams.device.type == "cpu":
+        LAUNCHES["plain"] += 1
+        out = lzx_phase_a_plain(streams, lens, out_lens, hists, window_bits,
+                                is_delta=is_delta, tcap=tcap, state=state)
+        return out if want_state else out[:3]
+    if streams.device.type != "cuda":
+        raise ValueError(f"unsupported device {streams.device}")
+    L = streams.shape[0]
+    dev = streams.device
+    lib = kernels.lib()
+    if lib.msp_k3_state_bytes() != STATE_BYTES:
+        raise RuntimeError("lz::State and STATE_DTYPE differ in size")
+    fresh = state is None
+    if fresh:
+        state = torch.empty((L, STATE_BYTES), dtype=torch.uint8, device=dev)
+    tok = torch.empty((L, tcap), dtype=torch.int32, device=dev)
+    litw = torch.empty((L, tcap), dtype=torch.int32, device=dev)
+    cnt = torch.empty((8, L), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.msp_k3_lzx(
+            streams.data_ptr(), streams.stride(0), lens.data_ptr(),
+            out_lens.data_ptr(), hists.data_ptr(), L, window_bits,
+            int(bool(is_delta)), int(fresh), state.data_ptr(),
+            tok.data_ptr(), litw.data_ptr(), tcap, cnt.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "K3 lzx")
+    LAUNCHES["cuda"] += 1
+    return (tok, litw, cnt, state) if want_state else (tok, litw, cnt)
+
+
+# ---------------------------------------------------------------- plain --
+
+class _DataError(Exception):
+    pass
+
+
+class _TokenCap(Exception):
+    pass
+
+
+def _build(lens, n):
+    """(count, sym, left) of the canonical code of lens[:n], as
+    lzx_core.cuh:build: lengths above 16 are no code; left is the unused
+    code space out of 2^16, -1 when over-subscribed (sym then None)."""
+    count = [0] * 17
+    for v in lens[:n]:
+        if v <= 16:
+            count[v] += 1
+    count[0] = 0
+    left = 1
+    for n_ in range(1, 17):
+        left = (left << 1) - count[n_]
+        if left < 0:
+            return count, None, -1
+    offs = [0] * 17
+    for n_ in range(1, 16):
+        offs[n_ + 1] = offs[n_] + count[n_]
+    sym = {}
+    for s, v in enumerate(lens[:n]):
+        if 1 <= v <= 16:
+            sym[offs[v]] = s
+            offs[v] += 1
+    return count, sym, left
+
+
+def _lut(count, sym):
+    """16-bit peek -> (length << 16) | symbol for a complete code."""
+    lut = np.zeros(1 << 16, np.int64)
+    code = index = 0
+    for n in range(1, 17):
+        for k in range(count[n]):
+            lo = code << (16 - n)
+            lut[lo:lo + (1 << (16 - n))] = (n << 16) | sym[index + k]
+            code += 1
+        index += count[n]
+        code <<= 1
+    return lut.tolist()
+
+
+class _Lane:
+    """One stream's decode on one state record: lzx_core.cuh in Python."""
+
+    def __init__(self, src, rec, hist, window_bits, is_delta, tcap):
+        self.src, self.n = src, len(src)
+        self.rec = rec
+        self.hist, self.delta, self.tcap = hist, is_delta, tcap
+        self.wbits = window_bits
+        self.num_offsets = POSITION_SLOTS[window_bits - 15] << 3
+        for f in _SCALARS:
+            setattr(self, f, int(rec[f]))
+        self.main_lens = rec["main_lens"].tolist()
+        self.len_lens = rec["len_lens"].tolist()
+        self.aln_lens = rec["aln_lens"].tolist()
+        # lookup tables of the trees last built, as the record holds them
+        self.luts = {}
+        for t in ("main", "len", "aln"):
+            count = rec[f"{t}_count"].tolist()
+            if sum(count):
+                self.luts[t] = _lut(count, rec[f"{t}_sym"].tolist())
+        self.toks, self.litws = [], []
+        self.word = self.cnt = 0
+        self.upos = self.buf = self.nbits = 0
+
+    # -- bits: MSB first over 16-bit little-endian units, zeros past the end
+
+    def fill(self):
+        src, n = self.src, self.n
+        while self.nbits <= 48:
+            p = self.upos
+            u = (src[p] if p < n else 0) | ((src[p + 1] if p + 1 < n else 0)
+                                            << 8)
+            self.upos = p + 2
+            self.buf = (self.buf << 16) | u
+            self.nbits += 16
+
+    def peek(self, k):
+        if self.nbits < k:
+            self.fill()
+        return self.buf >> (self.nbits - k)
+
+    def drop(self, k):
+        self.nbits -= k
+        self.buf &= (1 << self.nbits) - 1
+
+    def take(self, k):
+        if k == 0:
+            return 0
+        v = self.peek(k)
+        self.drop(k)
+        return v
+
+    def tell(self):
+        return self.upos * 8 - self.nbits
+
+    def seek(self, p):
+        self.upos = (p >> 4) << 1
+        self.buf = self.nbits = 0
+        if p & 15:
+            self.fill()
+            self.drop(p & 15)
+
+    def byte_at(self, p):
+        return self.src[p] if p < self.n else 0
+
+    # -- tokens -----------------------------------------------------------
+
+    def emit(self, tok, litw):
+        if len(self.toks) >= self.tcap:
+            raise _TokenCap
+        self.toks.append(tok)
+        self.litws.append(litw - (1 << 32) if litw >= 1 << 31 else litw)
+
+    def flush(self):
+        if self.cnt:
+            self.emit(TOK_LIT | self.cnt, self.word)
+            self.word = self.cnt = 0
+
+    def literal(self, v):
+        self.word |= v << (8 * self.cnt)
+        self.cnt += 1
+        if self.cnt == 4:
+            self.flush()
+
+    # -- trees ------------------------------------------------------------
+
+    def set_tree(self, name, lens, n):
+        """Build a tree into the record; returns its left code space."""
+        count, sym, left = _build(lens, n)
+        self.rec[f"{name}_count"] = count
+        if sym is not None:
+            arr = self.rec[f"{name}_sym"]
+            for k, s in sym.items():
+                arr[k] = s
+            if left == 0:
+                self.luts[name] = _lut(count, sym)
+        return left
+
+    def decode(self, lut):
+        v = lut[self.peek(16)]
+        self.drop(v >> 16)
+        return v & 0xFFFF
+
+    def read_lens(self, lens, first, last):
+        plens = [self.take(4) for _ in range(NPRE)]
+        count, sym, left = _build(plens, NPRE)
+        if left != 0:
+            raise _DataError("pretree")
+        pre = _lut(count, sym)
+        pos = first
+        while pos < last:
+            s = self.decode(pre)
+            run, value = 1, 0
+            if s == 17:
+                run = self.take(4) + 4
+            elif s == 18:
+                run = self.take(5) + 20
+            else:
+                if s == 19:
+                    run = self.take(1) + 4
+                    s = self.decode(pre)
+                value = lens[pos] - s
+                if value < 0:
+                    value += 17
+                value &= 0xFF
+            lens[pos:pos + run] = [value] * run
+            pos += run
+
+    def begin_block(self):
+        if self.block_type == 3 and self.block_length & 1:
+            self.seek(self.tell() + 8)
+        self.block_type = self.take(3)
+        hi = self.take(16)
+        self.block_remaining = self.block_length = (hi << 8) | self.take(8)
+        if self.block_type == 3:
+            self.intel_started = 1
+            q = (((self.tell() >> 4) + 1) << 4) >> 3
+            r = [self.byte_at(q + k) for k in range(12)]
+            self.r0, self.r1, self.r2 = (
+                r[k] | r[k + 1] << 8 | r[k + 2] << 16 | r[k + 3] << 24
+                for k in (0, 4, 8))
+            self.seek((q + 12) * 8)
+            return
+        if self.block_type not in (1, 2):
+            raise _DataError("bad block type")
+        if self.block_type == 2:
+            self.aln_lens = [self.take(3) for _ in range(NALN)]
+            if self.set_tree("aln", self.aln_lens, NALN) != 0:
+                raise _DataError("aligned tree")
+        self.read_lens(self.main_lens, 0, 256)
+        self.read_lens(self.main_lens, 256, 256 + self.num_offsets)
+        if self.set_tree("main", self.main_lens, MAIN_MAX) != 0:
+            raise _DataError("main tree")
+        if self.main_lens[0xE8]:
+            self.intel_started = 1
+        self.read_lens(self.len_lens, 0, NLEN - 1)
+        self.length_empty = int(not any(self.len_lens[:NLEN]))
+        if self.set_tree("len", self.len_lens, NLEN) != 0 and \
+                not self.length_empty:
+            raise _DataError("length tree")
+
+    # -- symbols ----------------------------------------------------------
+
+    def match(self, sym, fbase, fend):
+        elem = sym - 256
+        ln = elem & 7
+        if ln == 7:
+            if self.length_empty:
+                raise _DataError("LENGTH symbol from an empty tree")
+            ln += self.decode(self.luts["len"])
+        ln += 2
+        slot = elem >> 3
+        if slot == 0:
+            off = self.r0
+        elif slot == 1:
+            off = self.r1
+            self.r1, self.r0 = self.r0, off
+        elif slot == 2:
+            off = self.r2
+            self.r2, self.r0 = self.r0, off
+        else:
+            extra = 17 if slot >= 36 else (slot >> 1) - 1
+            if slot < 38:
+                base = (2 + (slot & 1)) << ((slot >> 1) - 1)
+            else:
+                base = 524288 + (slot - 38) * 131072
+            off = base - 2
+            if extra >= 3 and self.block_type == 2:
+                if extra > 3:
+                    off += self.take(extra - 3) << 3
+                off += self.decode(self.luts["aln"])
+            else:
+                off += self.take(extra)
+            self.r2, self.r1, self.r0 = self.r1, self.r0, off
+        if self.delta and ln == 257:
+            e = self.peek(3)
+            if e >> 2 == 0:
+                self.drop(1)
+                ln += self.take(8)
+            elif e >> 1 == 2:
+                self.drop(2)
+                ln += self.take(10) + 0x100
+            elif e == 6:
+                self.drop(3)
+                ln += self.take(12) + 0x500
+            else:
+                self.drop(3)
+                ln += self.take(15)
+        wsize = 1 << self.wbits
+        lap = self.outpos & (wsize - 1)
+        if lap + ln > wsize:
+            raise _DataError("match over the window wrap")
+        if ln > self.block_remaining or self.outpos + ln > fend:
+            raise _DataError("match past the block or frame")
+        first = ln
+        if off > lap:
+            if off > fbase and off - lap > self.hist:
+                raise _DataError("match offset beyond the stream")
+            if off - lap > wsize:
+                raise _DataError("match offset beyond the window")
+            if off > wsize and ln > off - lap:
+                first = off - lap
+        self.flush()
+        if off > lap and off > wsize:
+            self.emit(TOK_MATCH | first, off - wsize)
+            if first < ln:
+                self.emit(TOK_MATCH | (ln - first), off)
+        else:
+            self.emit(TOK_MATCH | ln, off)
+        self.outpos += ln
+        self.block_remaining -= ln
+
+    def run(self, target):
+        while self.outpos < target:
+            fbase = self.outpos
+            fend = min(fbase + FRAME, target)
+            if self.delta:
+                self.take(16)
+            if not self.header_read:
+                v = 0
+                if self.take(1):
+                    hi = self.take(16)
+                    v = (hi << 16) | self.take(16)
+                    v = v - (1 << 32) if v & 0x80000000 else v
+                self.intel_filesize = v
+                self.header_read = 1
+            while self.outpos < fend:
+                if self.block_remaining == 0:
+                    self.begin_block()
+                    continue
+                if self.block_type == 3:
+                    k = min(fend - self.outpos, self.block_remaining)
+                    q = self.tell() >> 3
+                    for j in range(k):
+                        self.literal(self.byte_at(q + j))
+                    self.seek((q + k) * 8)
+                    self.outpos += k
+                    self.block_remaining -= k
+                    continue
+                sym = self.decode(self.luts["main"])
+                if sym < 256:
+                    self.literal(sym)
+                    self.outpos += 1
+                    self.block_remaining -= 1
+                    continue
+                self.match(sym, fbase, fend)
+            if self.block_type != 3:
+                self.seek((self.tell() + 15) & ~15)
+        self.flush()
+
+    def decode_to(self, target):
+        """-> the counts column (err, outpos, ntok, cursor, intel_started,
+        intel_filesize); writes the state back to the record."""
+        if self.err == 0 and self.outpos < target:
+            self.seek(self.bitpos)
+            try:
+                self.run(target)
+            except _DataError:
+                self.err = 1
+            except _TokenCap:
+                self.err = 2
+            self.bitpos = self.tell()
+        rec = self.rec
+        for f in _SCALARS:
+            rec[f] = getattr(self, f)
+        rec["main_lens"] = self.main_lens
+        rec["len_lens"] = self.len_lens
+        rec["aln_lens"] = self.aln_lens
+        return (self.err, self.outpos, len(self.toks), (self.bitpos + 7) >> 3,
+                self.intel_started, self.intel_filesize)
+
+
+def _new_state(L):
+    """L fresh state records (lz::init), as a CPU uint8 tensor."""
+    arr = np.zeros(L, STATE_DTYPE)
+    arr["r0"] = arr["r1"] = arr["r2"] = 1
+    return torch.from_numpy(arr.view(np.uint8).reshape(L, STATE_BYTES))
+
+
+def lzx_phase_a_plain(streams, lens, out_lens, hists, window_bits, *,
+                      is_delta=False, tcap, state=None):
+    """Plain version of K3 on CPU tensors: same outputs and state record,
+    with NOP (-1) tokens and zero litwords past each lane's count. Returns
+    ``(tok, litw, cnt, state)``; a passed ``state`` is updated in place."""
+    L = streams.shape[0]
+    if state is None:
+        state = _new_state(L)
+    recs = state.numpy().view(STATE_DTYPE).reshape(L)
+    src = streams.numpy()
+    tok = np.full((L, tcap), TOK_NOP, np.int32)
+    litw = np.zeros((L, tcap), np.int32)
+    cnt = np.zeros((8, L), np.int32)
+    for i in range(L):
+        lane = _Lane(src[i, :int(lens[i])].tobytes(), recs[i], int(hists[i]),
+                     window_bits, bool(is_delta), tcap)
+        cnt[:6, i] = lane.decode_to(int(out_lens[i]))
+        n = len(lane.toks)
+        tok[i, :n] = lane.toks
+        litw[i, :n] = lane.litws
+    return (torch.from_numpy(tok), torch.from_numpy(litw),
+            torch.from_numpy(cnt), state)

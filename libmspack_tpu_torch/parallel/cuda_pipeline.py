@@ -1,10 +1,14 @@
-"""MSZIP folder decode on the GPU: K1 phase A + host or device phase B.
+"""Folder and stream decode on the GPU: the port's batched engines.
 
-Port of ``libmspack_tpu/parallel/tpu_pipeline.py::TpuMszipEngine``. The
-frames of whole folders are batched into lanes, one frame per lane. K1
-(``ops/cuda_inflate.py``) decodes each frame into a token trace; phase B
-turns the traces into bytes, chaining the frames of a folder so that
-matches reach into the frame before (reference mszipd.c:407-459):
+``CudaMszipEngine`` ports ``libmspack_tpu/parallel/tpu_pipeline.py::
+TpuMszipEngine``: K1 phase A + host or device phase B for MSZIP folders.
+``CudaLzxEngine`` ports ``TpuLzxEngine``: K3 phase A + host phase B for
+independent LZX streams (CAB folders, CHM reset chunks, OAB DELTA blocks).
+
+MSZIP: the frames of whole folders are batched into lanes, one frame per
+lane. K1 (``ops/cuda_inflate.py``) decodes each frame into a token trace;
+phase B turns the traces into bytes, chaining the frames of a folder so
+that matches reach into the frame before (reference mszipd.c:407-459):
 
 * ``phase_b="host"``: the traces are pulled to the host and resolved by
   the native C++ resolver (``native.resolve_traces``);
@@ -16,7 +20,7 @@ re-decoded by the native engine, which reproduces the reference's error
 semantics; a folder above the trace budget goes there directly. Every
 such decline is counted in ``declines`` by reason.
 
-With ``device="cpu"`` the same pipeline runs the kernels' plain versions.
+With ``device="cpu"`` the same pipelines run the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -29,24 +33,68 @@ import torch
 
 from .._device import resolve_device
 from ..ops import cuda_inflate as ci
+from ..ops import cuda_lzx as cl
 from ..ops import cuda_resolve as cr
 
 FRAME_MAX = ci.FRAME_MAX
 # Device memory for one launch's trace: tok + litw are 8 bytes per token,
-# and a lane holds up to FRAME_MAX tokens (one per output byte at worst),
-# so 1 GiB holds 4096 lanes. Two launches are in flight at once.
+# and a lane holds up to one token per output byte, so 1 GiB holds 4096
+# MSZIP frames or 128 MiB of LZX output. Two launches are in flight at once.
 TRACE_BUDGET = 1 << 30
 MAX_LANES = TRACE_BUDGET // (8 * FRAME_MAX)
 
 
-class CudaMszipEngine:
-    """Batched MSZIP folder decode through K1 and host or device phase B."""
+def window_tails(refs, window_bits):
+    """Each LZX stream's window before its first byte, as uint8 numpy
+    ``(len(refs), 2^window_bits)``: zeros, with the stream's DELTA
+    reference data (if any) at the tail (lzxd.c:348-382)."""
+    wsize = 1 << window_bits
+    hists = np.zeros((len(refs), wsize), np.uint8)
+    for j, ref in enumerate(refs):
+        if ref:
+            hists[j, wsize - len(ref):] = np.frombuffer(ref, np.uint8)
+    return hists
 
-    def __init__(self, device="cuda", phase_b: str = "host"):
-        if phase_b not in ("host", "device"):
-            raise ValueError(f"phase_b must be host or device: {phase_b}")
+
+def resolve_lzx(tok, litw, sizes, iflags, ifszs, window_bits, hists=None,
+                n_threads=None):
+    """LZX phase B on the host: ``native.lzx_resolve_traces`` of each
+    lane's trace (int32 numpy ``(L, T)``, rows as K3 writes them) into one
+    arena, with the E8 untransform where rows 4-5 (``iflags``, ``ifszs``)
+    ask for it, and the window before each stream from ``hists`` (zeros
+    when None). Returns each lane's bytes as numpy views, or None on the
+    resolver's error."""
+    from libmspack_tpu import native
+
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    arena = np.empty(max(int(offs[-1]), 1), np.uint8)
+    r = native.lzx_resolve_traces(
+        np.ascontiguousarray(tok, np.int32),
+        np.ascontiguousarray(litw, np.int32), [int(s) for s in sizes],
+        [int(v) for v in iflags], [int(v) for v in ifszs], window_bits,
+        arena, [int(o) for o in offs], n_threads, hists=hists)
+    if r != 0:
+        return None
+    return [arena[offs[j]:offs[j + 1]] for j in range(len(sizes))]
+
+
+def segment_targets(totals, seg):
+    """The launches of a segmented LZX decode: yields ``(pos, targets)``,
+    each lane's output position before and after the launch, in steps of
+    ``seg`` bytes until every lane reaches its total."""
+    totals = np.asarray(totals, np.int64)
+    pos = np.zeros_like(totals)
+    while (pos < totals).any():
+        targets = np.minimum(totals, pos + seg)
+        yield pos, targets
+        pos = targets
+
+
+class _Engine:
+    """Device, decline counts and phase timings shared by the engines."""
+
+    def __init__(self, device):
         self.device = resolve_device(device)
-        self.phase_b = phase_b
         # both accumulate over calls; a caller clears them to read one run
         self.declines: collections.Counter = collections.Counter()
         self.timings: dict[str, float] = {}
@@ -74,6 +122,16 @@ class CudaMszipEngine:
             self._streams = [torch.cuda.Stream(self.device)
                              for _ in range(2)]
         return torch.cuda.stream(self._streams[k % 2])
+
+
+class CudaMszipEngine(_Engine):
+    """Batched MSZIP folder decode through K1 and host or device phase B."""
+
+    def __init__(self, device="cuda", phase_b: str = "host"):
+        if phase_b not in ("host", "device"):
+            raise ValueError(f"phase_b must be host or device: {phase_b}")
+        super().__init__(device)
+        self.phase_b = phase_b
 
     # -- public ----------------------------------------------------------
 
@@ -250,3 +308,247 @@ class CudaMszipEngine:
             else:
                 out[offsets[fi]:offsets[fi + 1]] = obh[pos:pos + size]
             pos += size
+
+
+class CudaLzxEngine(_Engine):
+    """Batched LZX stream decode through K3 and host phase B.
+
+    Each stream is an independent fresh-entropy-state LZX stream: a CAB
+    folder (CAB LZX never resets, cabd.c:1249-1250, so a folder is one
+    stream), a CHM reset-interval chunk, or an OAB DELTA block. Streams
+    batch onto lanes, one per lane; K3 (``ops/cuda_lzx.py``) emits each
+    lane's token trace and the native C++ resolver
+    (``native.lzx_resolve_traces``) turns the traces into bytes, with the
+    E8 call-translation untransform (lzxd.c:706-733).
+
+    A batch decodes in one launch when its trace (lanes x the longest
+    stream's output x 8 bytes) fits ``TRACE_BUDGET``; otherwise, or when a
+    stream is longer than ``segment_bytes``, in frame-aligned segments:
+    each lane's decoder state stays in its K3 state record between
+    launches, window tails carry phase B across segments, and E8 runs once
+    at the end over the pre-transform bytes.
+
+    ``decode_streams`` returns the bytes of every stream, or None when it
+    declines (a flagged lane, an intel E8 header where chunks of one
+    stream or DELTA blocks forbid it, a resolver error); the caller then
+    takes its own fallback. Every decline is counted in ``declines``."""
+
+    TRACE_BUDGET = TRACE_BUDGET
+
+    def __init__(self, device="cuda", segment_bytes: int | None = None):
+        if segment_bytes is not None and (segment_bytes <= 0
+                                          or segment_bytes % cl.FRAME):
+            raise ValueError("segment_bytes must be a positive multiple "
+                             f"of {cl.FRAME}")
+        super().__init__(device)
+        self.segment_bytes = segment_bytes
+        self.n_decoded = 0   # streams decoded through K3
+        self.lanes = 0       # lanes launched
+
+    def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
+                       decline_on_intel=False, is_delta=False, refs=None):
+        """streams: list of bytes; out_lens: their decoded sizes; refs:
+        DELTA reference data per stream (preloaded at the window tail,
+        lzxd.c:348-382). ``decline_on_intel``: the streams are chunks of
+        one stream (CHM section 1), whose E8 state is stream-global
+        (lzxd.c:707-713), so an E8 header declines."""
+        from libmspack_tpu import native
+
+        if not streams:
+            return []
+        if not native.available():
+            self.declines["native resolver unavailable"] += 1
+            return None
+        lo, hi = (17, 25) if is_delta else (15, 21)
+        if not lo <= window_bits <= hi:
+            self.declines["window size outside LZX's"] += 1
+            return None
+        t0 = time.perf_counter()
+        job = dict(streams=streams, out_lens=list(out_lens),
+                   window_bits=window_bits, n_threads=n_threads,
+                   intel_declines=decline_on_intel or is_delta,
+                   is_delta=is_delta,
+                   refs=list(refs) if refs else [b""] * len(streams),
+                   outs=[None] * len(streams))
+        ok = True
+        inflight = []
+        for k, (idxs, seg) in enumerate(self._plan(job["out_lens"])):
+            if seg:
+                while ok and inflight:
+                    ok = self._finish(inflight.pop(0), job)
+                ok = ok and self._segmented(idxs, seg, job)
+            else:
+                inflight.append(self._launch(k, idxs, job))
+                if len(inflight) > 1:
+                    ok = self._finish(inflight.pop(0), job)
+            if not ok:
+                break
+        while ok and inflight:
+            ok = self._finish(inflight.pop(0), job)
+        self._add("total_ms", t0, time.perf_counter(), host=True)
+        return job["outs"] if ok else None
+
+    # -- batching --------------------------------------------------------
+
+    def _plan(self, out_lens):
+        """[(lane indices, segment bytes or None)]: single launches whose
+        trace fits the budget, then the streams that need segments."""
+        cap = self.TRACE_BUDGET // 8   # token slots of one launch
+        seg_lim = self.segment_bytes or cap
+        plan, cur, cur_max, long_ = [], [], 0, []
+        for i, n in enumerate(out_lens):
+            n = max(int(n), 1)
+            if n > seg_lim:
+                long_.append(i)
+                continue
+            if cur and max(cur_max, n) * (len(cur) + 1) > cap:
+                plan.append((cur, None))
+                cur, cur_max = [], 0
+            cur.append(i)
+            cur_max = max(cur_max, n)
+        if cur:
+            plan.append((cur, None))
+        if long_:
+            seg = self.segment_bytes or max(
+                cl.FRAME, cap // len(long_) // cl.FRAME * cl.FRAME)
+            per = max(1, cap // seg)
+            plan += [(long_[j:j + per], seg)
+                     for j in range(0, len(long_), per)]
+        return plan
+
+    def _upload(self, idxs, job):
+        """Streams, lengths and history budgets (DELTA reference bytes)
+        of the lanes, on the device."""
+        streams, lens = cl.pack_streams([job["streams"][i] for i in idxs])
+        budgets = torch.tensor([len(job["refs"][i]) for i in idxs],
+                               dtype=torch.int32)
+        return tuple(t.to(self.device) for t in (streams, lens, budgets))
+
+    def _launch(self, k, idxs, job):
+        """Pack, upload and launch K3 for one batch; nothing waits."""
+        sizes = [int(job["out_lens"][i]) for i in idxs]
+        targets = torch.tensor(sizes, dtype=torch.int32)
+        with self._on(k):
+            e0 = self._mark()
+            streams, lens, budgets = self._upload(idxs, job)
+            targets = targets.to(self.device)
+            e1 = self._mark()
+            tok, litw, cnt = cl.lzx_phase_a(
+                streams, lens, targets, budgets, job["window_bits"],
+                is_delta=job["is_delta"], tcap=max(1, max(sizes)))
+            e2 = self._mark()
+        self.lanes += len(idxs)
+        return dict(k=k, idxs=idxs, sizes=sizes, tok=tok, litw=litw,
+                    cnt=cnt, marks=(e0, e1, e2))
+
+    # -- phase B ---------------------------------------------------------
+
+    def _counts_ok(self, cnt, lanes, targets):
+        """Row 0 clear and row 1 at its target on the given lanes."""
+        if (cnt[0, lanes] != 0).any() or \
+                (cnt[1, lanes] != np.asarray(targets)[lanes]).any():
+            self.declines["flagged lane"] += 1
+            return False
+        return True
+
+    def _intel_declined(self, iflags, ifszs, job):
+        if job["intel_declines"] and any(iflags) and any(ifszs):
+            self.declines["intel E8 in chunked or DELTA streams"] += 1
+            return True
+        return False
+
+    @staticmethod
+    def _hists(idxs, job):
+        return window_tails([job["refs"][i] for i in idxs],
+                            job["window_bits"])
+
+    def _pull(self, tok, litw, ntok):
+        e0 = self._mark()
+        tmax = max(1, int(ntok.max()))
+        tok = tok[:, :tmax].contiguous().cpu().numpy()
+        litw = litw[:, :tmax].contiguous().cpu().numpy()
+        self._add("trace_pull_ms", e0, self._mark())
+        return tok, litw
+
+    def _resolve(self, tok, litw, sizes, iflags, ifszs, hists, job):
+        """``resolve_lzx``, timed; a resolver error is a decline."""
+        t0 = time.perf_counter()
+        parts = resolve_lzx(tok, litw, sizes, iflags, ifszs,
+                            job["window_bits"], hists, job["n_threads"])
+        self._add("host_resolve_ms", t0, time.perf_counter(), host=True)
+        if parts is None:
+            self.declines["host resolve error"] += 1
+        return parts
+
+    def _finish(self, h, job):
+        idxs, sizes = h["idxs"], h["sizes"]
+        n = len(idxs)
+        with self._on(h["k"]):
+            cnt = h["cnt"].cpu().numpy()
+            e0, e1, e2 = h["marks"]
+            self._add("upload_ms", e0, e1)
+            self._add("k3_ms", e1, e2)
+            iflags = [int(v) for v in cnt[4, :n]]
+            ifszs = [int(v) for v in cnt[5, :n]]
+            if not self._counts_ok(cnt, slice(0, n), sizes) or \
+                    self._intel_declined(iflags, ifszs, job):
+                return False
+            tok, litw = self._pull(h["tok"], h["litw"], cnt[2, :n])
+            hists = self._hists(idxs, job) if job["is_delta"] else None
+            parts = self._resolve(tok, litw, sizes, iflags, ifszs, hists,
+                                  job)
+        if parts is None:
+            return False
+        for j, i in enumerate(idxs):
+            job["outs"][i] = parts[j].tobytes()
+        self.n_decoded += n
+        return True
+
+    def _segmented(self, idxs, seg, job):
+        """Decode in launches of <= seg bytes per lane (frame-aligned),
+        the decoder state carried in the K3 state records; window tails
+        chain phase B across segments and E8 runs once at the end (the
+        window holds pre-transform bytes, lzxd.c:706-733)."""
+        from libmspack_tpu import native
+
+        n = len(idxs)
+        totals = np.array([int(job["out_lens"][i]) for i in idxs])
+        parts = [np.empty(int(t), np.uint8) for t in totals]
+        tails = self._hists(idxs, job)
+        e0 = self._mark()
+        streams, lens, budgets = self._upload(idxs, job)
+        self._add("upload_ms", e0, self._mark())
+        self.lanes += n
+        state = None
+        cnt = None
+        for pos, targets in segment_targets(totals, seg):
+            e0 = self._mark()
+            tok, litw, cnt, state = cl.lzx_phase_a(
+                streams, lens,
+                torch.tensor(targets, dtype=torch.int32).to(self.device),
+                budgets, job["window_bits"], is_delta=job["is_delta"],
+                tcap=seg, state=state, return_state=True)
+            cnt = cnt.cpu().numpy()
+            self._add("k3_ms", e0, self._mark())
+            if not self._counts_ok(cnt, pos < totals, targets):
+                return False
+            tok, litw = self._pull(tok, litw, cnt[2])
+            got = self._resolve(tok, litw, targets - pos, [0] * n, [0] * n,
+                                tails, job)
+            if got is None:
+                return False
+            for j in range(n):
+                if targets[j] > pos[j]:
+                    parts[j][pos[j]:targets[j]] = got[j]
+                    tails[j] = np.concatenate([tails[j], got[j]])[
+                        -len(tails[j]):]
+        iflags = [int(v) for v in cnt[4, :n]]
+        ifszs = [int(v) for v in cnt[5, :n]]
+        if self._intel_declined(iflags, ifszs, job):
+            return False
+        for j, i in enumerate(idxs):
+            if iflags[j] and ifszs[j]:
+                native.e8_decode_buf(parts[j], ifszs[j], 0)
+            job["outs"][i] = parts[j].tobytes()
+        self.n_decoded += n
+        return True

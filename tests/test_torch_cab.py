@@ -117,7 +117,7 @@ def test_corrupt_frame_takes_counted_native_redecode():
     assert d.cuda_engine.declines["flagged lane"] == 1
 
 
-@pytest.mark.parametrize("compression", ["lzx", "quantum"])
+@pytest.mark.parametrize("compression", ["quantum"])
 def test_lzx_and_quantum_folders_not_yet(compression):
     blob = cab_c.write_cab(files=[("l.txt", b"later slice " * 100)],
                            compression=compression)
@@ -163,6 +163,18 @@ def test_port_imports_no_jax():
         "frames, sizes = d.collect_mszip_frames(d.open(blob).folders[0])\n"
         "assert eng.decode_folders([([f[2:] for f in frames], sizes)])"
         " == [data]\n"
+        "from libmspack_tpu.compress import chm_c\n"
+        "from libmspack_tpu_torch import lzx_edge_cases\n"
+        "blob = cab_c.write_cab(files=[('l.txt', data)], "
+        "compression='lzx')\n"
+        "s = BytesSink()\n"
+        "d.extract(d.open(blob).files[0], s)\n"
+        "assert s.getvalue() == data and d.cuda_lzx_engine.n_decoded == 1\n"
+        "c = lt.create_chm_decompressor(engine='cuda', device='cpu')\n"
+        "chm = c.open(chm_c.write_chm([('/h.html', data)]))\n"
+        "s = BytesSink()\n"
+        "c.extract(chm.files[0], s)\n"
+        "assert s.getvalue() == data and c.cuda_engine.n_decoded == 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
