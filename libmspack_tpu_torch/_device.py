@@ -1,7 +1,11 @@
-"""The explicit device of the port's entry points."""
+"""The explicit device and engine of the port's entry points."""
 from __future__ import annotations
 
 import torch
+
+from .errors import ArgsError
+
+ENGINES = ("cuda", "native", "scalar")
 
 
 def resolve_device(device) -> torch.device:
@@ -14,3 +18,17 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: use cuda or cpu")
     return dev
+
+
+def resolve_engine(engine: str) -> str:
+    """A driver's engine: ``"cuda"``, ``"native"`` or ``"scalar"``;
+    ``"auto"`` is the native host engine when it builds, else
+    ``"scalar"``. The JAX package's ``"jax"`` and ``"tpu"`` engines are
+    not ported (ROADMAP.md, Queue 1) and raise ``ArgsError``."""
+    if engine == "auto":
+        from . import native
+        return "native" if native.available() else "scalar"
+    if engine not in ENGINES:
+        raise ArgsError(f"engine {engine!r} is not in the port: use one of "
+                        f"{ENGINES} or 'auto' (ROADMAP.md, Queue 1)")
+    return engine

@@ -192,7 +192,7 @@ def resolve_valid(cases, tok, litw, cnt):
     tok, litw: int32 numpy ``(L, T)``; cnt: the ``(8, L)`` counts. Returns
     {first lane: bytes or None}; None where phase A flagged a lane or the
     resolver failed."""
-    from libmspack_tpu import native
+    from . import native
 
     tok = np.ascontiguousarray(tok, np.int32)
     litw = np.ascontiguousarray(litw, np.int32)

@@ -1,15 +1,18 @@
-"""Build and load the port's CUDA kernels (K1 inflate, K2 resolve, K3 LZX).
+"""Build and load the port's CUDA kernels (K1 inflate, K2 resolve, K3 LZX,
+K4 Quantum).
 
 The sources in ``libmspack_tpu_torch/csrc`` are compiled at first use by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per ``.cu`` file, all
+started together, and linked into one shared library with a plain C
 interface, which ctypes loads. The library lives in
 ``libmspack_tpu_torch/_build/`` (git-ignored), named by the sha256 of the
 sources, so an edit rebuilds and an unchanged tree reuses the last build.
 Nothing here runs at import time: this module imports on hosts without a
 CUDA toolkit, and only ``lib()`` needs one.
 
-``host_twin()`` and ``host_twin_lzx()`` build the per-stream cores
-(``deflate_core.cuh``, ``lzx_core.cuh``) with g++ instead, for the tests:
+``host_twin()``, ``host_twin_lzx()`` and ``host_twin_qtm()`` build the
+per-stream cores (``deflate_core.cuh``, ``lzx_core.cuh``,
+``qtm_core.cuh``) with g++ instead, for the tests:
 the same C++ the kernels run, on the CPU. Each twin is keyed by its own
 header's sha256.
 """
@@ -28,8 +31,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +44,8 @@ _SIGNATURES = {
     "msp_k2_resolve": [_P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P],
     "msp_k3_lzx": [_P, _I64, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                    ctypes.c_int32, _P, _P],
+    "msp_k4_qtm": [_P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_int32,
+                   _P, _P],
 }
 
 _lib = None
@@ -55,7 +59,7 @@ def _sources(patterns) -> list[str]:
     return out
 
 
-def _tag(paths) -> str:
+def source_tag(paths) -> str:
     h = hashlib.sha256()
     for p in paths:
         h.update(os.path.basename(p).encode())
@@ -64,7 +68,7 @@ def _tag(paths) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(cmd: list[str], so: str) -> str:
+def compile_to(cmd: list[str], so: str) -> str:
     """Run a compiler into a temporary name, then move it to ``so`` (so
     concurrent builds never load a half-written library). Returns the
     compiler's stderr; raises with it on failure."""
@@ -92,12 +96,11 @@ def lib():
     if _lib is not None:
         return _lib
     srcs = _sources(["*.cu", "*.cuh"])
-    so = os.path.join(BUILD_DIR, f"kernels_{_tag(srcs)}.so")
+    so = os.path.join(BUILD_DIR, f"kernels_{source_tag(srcs)}.so")
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(so):
-        cus = [s for s in srcs if s.endswith(".cu")]
-        log = _compile([nvcc_path()] + NVCC_FLAGS + cus, so)
+        log = _nvcc_parallel([s for s in srcs if s.endswith(".cu")], so)
     build_info.update(seconds=time.perf_counter() - t0, path=so,
                       ptxas=log)
     handle = ctypes.CDLL(so)
@@ -107,10 +110,40 @@ def lib():
         fn.restype = ctypes.c_int
     handle.msp_cuda_error_string.argtypes = [_I]
     handle.msp_cuda_error_string.restype = ctypes.c_char_p
-    handle.msp_k3_state_bytes.argtypes = []
-    handle.msp_k3_state_bytes.restype = _I64
+    for name in ("msp_k3_state_bytes", "msp_k4_state_bytes"):
+        getattr(handle, name).argtypes = []
+        getattr(handle, name).restype = _I64
     _lib = handle
     return _lib
+
+
+def _nvcc_parallel(cus: list[str], so: str) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link into
+    ``so``. Returns the compilers' stderr (the ptxas report); raises with
+    it on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    objs = [f"{so}.{os.getpid()}.{os.path.basename(c)}.o" for c in cus]
+    procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", c, "-o", o],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c, o in zip(cus, objs)]
+    logs, failed = [], []
+    for c, p in zip(cus, procs):
+        _, err = p.communicate()
+        logs.append(err)
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(c)}:\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        logs.append(compile_to([nvcc, "-shared"] + NVCC_FLAGS[:2] + objs,
+                               so))
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(logs)
 
 
 def _twin(header: str, define: str):
@@ -121,9 +154,9 @@ def _twin(header: str, define: str):
         raise RuntimeError("g++ not found")
     src = os.path.join(CSRC, header)
     stem = header.split("_")[0]
-    so = os.path.join(BUILD_DIR, f"{stem}_twin_{_tag([src])}.so")
+    so = os.path.join(BUILD_DIR, f"{stem}_twin_{source_tag([src])}.so")
     if not os.path.exists(so):
-        _compile([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+        compile_to([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
                   f"-D{define}", "-x", "c++", src], so)
     return ctypes.CDLL(so)
 
@@ -145,6 +178,17 @@ def host_twin_lzx():
     handle.lz_decode_host.restype = ctypes.c_int
     handle.lz_state_bytes.argtypes = []
     handle.lz_state_bytes.restype = _I64
+    return handle
+
+
+def host_twin_qtm():
+    """The Quantum core's twin: ``qt_decode_host``, K4's launch, and
+    ``qt_state_bytes``."""
+    handle = _twin("qtm_core.cuh", "QTM_CORE_HOST_TWIN")
+    handle.qt_decode_host.argtypes = _SIGNATURES["msp_k4_qtm"][:-1]
+    handle.qt_decode_host.restype = ctypes.c_int
+    handle.qt_state_bytes.argtypes = []
+    handle.qt_state_bytes.restype = _I64
     return handle
 
 

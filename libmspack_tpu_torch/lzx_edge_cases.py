@@ -8,8 +8,8 @@ block type, an over-subscribed pretree, a LENGTH symbol from an empty
 tree, an offset beyond the stream, an offset behind the window wrap and
 the frame's start).
 
-Streams come from the JAX package's encoder (``compress/lzx_e``, native or
-Python) and from a small block writer here, which can emit what the encoder
+Streams come from the port's copy of the encoder (``compress/lzx_e``,
+native or Python) and from a small block writer here, which can emit what the encoder
 never does: a chosen block type, R0-R2 set by an uncompressed block, a
 corrupt tree. Each valid case's bytes are the reference codec's
 (``codecs/lzx.py``) on the same stream. The tests and ``chip_smoke.py``
@@ -22,8 +22,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from libmspack_tpu.compress import lzx_e
-from libmspack_tpu.compress.lzx_c import LzxBitWriter
+from .codecs.lzx import LzxDecompressor
+from .compress import lzx_e
+from .compress.lzx_c import LzxBitWriter
+from .errors import MSPackError
 
 FRAME = 32768
 
@@ -41,9 +43,6 @@ class LzxCase:
 
 def scalar_decode(stream, out_len, window_bits, delta=False, ref=b""):
     """The reference codec's bytes (E8 applied), or None on its error."""
-    from libmspack_tpu.codecs.lzx import LzxDecompressor
-    from libmspack_tpu.errors import MSPackError
-
     pos = [0]
 
     def rd(n):

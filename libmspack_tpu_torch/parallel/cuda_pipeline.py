@@ -4,6 +4,8 @@
 TpuMszipEngine``: K1 phase A + host or device phase B for MSZIP folders.
 ``CudaLzxEngine`` ports ``TpuLzxEngine``: K3 phase A + host phase B for
 independent LZX streams (CAB folders, CHM reset chunks, OAB DELTA blocks).
+``CudaQtmEngine`` ports ``TpuQtmEngine``: K4 phase A + the same host phase
+B for CAB Quantum folders.
 
 MSZIP: the frames of whole folders are batched into lanes, one frame per
 lane. K1 (``ops/cuda_inflate.py``) decodes each frame into a token trace;
@@ -31,9 +33,11 @@ import time
 import numpy as np
 import torch
 
+from .. import native
 from .._device import resolve_device
 from ..ops import cuda_inflate as ci
 from ..ops import cuda_lzx as cl
+from ..ops import cuda_qtm as cq
 from ..ops import cuda_resolve as cr
 
 FRAME_MAX = ci.FRAME_MAX
@@ -64,8 +68,6 @@ def resolve_lzx(tok, litw, sizes, iflags, ifszs, window_bits, hists=None,
     ask for it, and the window before each stream from ``hists`` (zeros
     when None). Returns each lane's bytes as numpy views, or None on the
     resolver's error."""
-    from libmspack_tpu import native
-
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     arena = np.empty(max(int(offs[-1]), 1), np.uint8)
     r = native.lzx_resolve_traces(
@@ -140,8 +142,6 @@ class CudaMszipEngine(_Engine):
         takes them. Returns the bytes of each folder, or None when a
         flagged folder fails its native re-decode as well (the caller's
         scalar path then raises the reference's error)."""
-        from libmspack_tpu import native
-
         t0 = time.perf_counter()
         offsets = np.zeros(len(folders) + 1, np.int64)
         np.cumsum([sum(s) for _, s in folders], out=offsets[1:])
@@ -250,8 +250,6 @@ class CudaMszipEngine(_Engine):
 
     def _resolve_host(self, h, runs, sizes, cnt, out, offsets, failed,
                       n_threads):
-        from libmspack_tpu import native
-
         tmax = max(1, int(max(cnt[2, l0:l0 + nf].max()
                               for _, l0, nf in runs)))
         e0 = self._mark()
@@ -310,28 +308,14 @@ class CudaMszipEngine(_Engine):
             pos += size
 
 
-class CudaLzxEngine(_Engine):
-    """Batched LZX stream decode through K3 and host phase B.
-
-    Each stream is an independent fresh-entropy-state LZX stream: a CAB
-    folder (CAB LZX never resets, cabd.c:1249-1250, so a folder is one
-    stream), a CHM reset-interval chunk, or an OAB DELTA block. Streams
-    batch onto lanes, one per lane; K3 (``ops/cuda_lzx.py``) emits each
-    lane's token trace and the native C++ resolver
-    (``native.lzx_resolve_traces``) turns the traces into bytes, with the
-    E8 call-translation untransform (lzxd.c:706-733).
-
-    A batch decodes in one launch when its trace (lanes x the longest
-    stream's output x 8 bytes) fits ``TRACE_BUDGET``; otherwise, or when a
-    stream is longer than ``segment_bytes``, in frame-aligned segments:
-    each lane's decoder state stays in its K3 state record between
-    launches, window tails carry phase B across segments, and E8 runs once
-    at the end over the pre-transform bytes.
-
-    ``decode_streams`` returns the bytes of every stream, or None when it
-    declines (a flagged lane, an intel E8 header where chunks of one
-    stream or DELTA blocks forbid it, a resolver error); the caller then
-    takes its own fallback. Every decline is counted in ``declines``."""
+class _StreamEngine(_Engine):
+    """Batching shared by the engines of independent streams, one per
+    lane (K3's LZX, K4's Quantum): a batch decodes in one launch when its
+    trace (lanes x the longest stream's output x 8 bytes) fits
+    ``TRACE_BUDGET``; otherwise, or when a stream is longer than
+    ``segment_bytes``, in frame-aligned segments through the kernel's
+    state records. Two launches are in flight at once. Subclasses give
+    ``_launch``, ``_finish`` and ``_segmented``."""
 
     TRACE_BUDGET = TRACE_BUDGET
 
@@ -342,34 +326,13 @@ class CudaLzxEngine(_Engine):
                              f"of {cl.FRAME}")
         super().__init__(device)
         self.segment_bytes = segment_bytes
-        self.n_decoded = 0   # streams decoded through K3
+        self.n_decoded = 0   # streams decoded through the kernel
         self.lanes = 0       # lanes launched
 
-    def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
-                       decline_on_intel=False, is_delta=False, refs=None):
-        """streams: list of bytes; out_lens: their decoded sizes; refs:
-        DELTA reference data per stream (preloaded at the window tail,
-        lzxd.c:348-382). ``decline_on_intel``: the streams are chunks of
-        one stream (CHM section 1), whose E8 state is stream-global
-        (lzxd.c:707-713), so an E8 header declines."""
-        from libmspack_tpu import native
-
-        if not streams:
-            return []
-        if not native.available():
-            self.declines["native resolver unavailable"] += 1
-            return None
-        lo, hi = (17, 25) if is_delta else (15, 21)
-        if not lo <= window_bits <= hi:
-            self.declines["window size outside LZX's"] += 1
-            return None
+    def _run(self, job):
+        """Every batch of the plan, two-deep; False on the first decline.
+        Adds ``total_ms``."""
         t0 = time.perf_counter()
-        job = dict(streams=streams, out_lens=list(out_lens),
-                   window_bits=window_bits, n_threads=n_threads,
-                   intel_declines=decline_on_intel or is_delta,
-                   is_delta=is_delta,
-                   refs=list(refs) if refs else [b""] * len(streams),
-                   outs=[None] * len(streams))
         ok = True
         inflight = []
         for k, (idxs, seg) in enumerate(self._plan(job["out_lens"])):
@@ -386,9 +349,7 @@ class CudaLzxEngine(_Engine):
         while ok and inflight:
             ok = self._finish(inflight.pop(0), job)
         self._add("total_ms", t0, time.perf_counter(), host=True)
-        return job["outs"] if ok else None
-
-    # -- batching --------------------------------------------------------
+        return ok
 
     def _plan(self, out_lens):
         """[(lane indices, segment bytes or None)]: single launches whose
@@ -415,6 +376,77 @@ class CudaLzxEngine(_Engine):
             plan += [(long_[j:j + per], seg)
                      for j in range(0, len(long_), per)]
         return plan
+
+    def _counts_ok(self, cnt, lanes, targets):
+        """Row 0 clear and row 1 at its target on the given lanes."""
+        if (cnt[0, lanes] != 0).any() or \
+                (cnt[1, lanes] != np.asarray(targets)[lanes]).any():
+            self.declines["flagged lane"] += 1
+            return False
+        return True
+
+    def _pull(self, tok, litw, ntok):
+        e0 = self._mark()
+        tmax = max(1, int(ntok.max()))
+        tok = tok[:, :tmax].contiguous().cpu().numpy()
+        litw = litw[:, :tmax].contiguous().cpu().numpy()
+        self._add("trace_pull_ms", e0, self._mark())
+        return tok, litw
+
+    def _resolve(self, tok, litw, sizes, iflags, ifszs, hists, job):
+        """``resolve_lzx``, timed; a resolver error is a decline."""
+        t0 = time.perf_counter()
+        parts = resolve_lzx(tok, litw, sizes, iflags, ifszs,
+                            job["window_bits"], hists, job["n_threads"])
+        self._add("host_resolve_ms", t0, time.perf_counter(), host=True)
+        if parts is None:
+            self.declines["host resolve error"] += 1
+        return parts
+
+
+class CudaLzxEngine(_StreamEngine):
+    """Batched LZX stream decode through K3 and host phase B.
+
+    Each stream is an independent fresh-entropy-state LZX stream: a CAB
+    folder (CAB LZX never resets, cabd.c:1249-1250, so a folder is one
+    stream), a CHM reset-interval chunk, or an OAB DELTA block. Streams
+    batch onto lanes, one per lane; K3 (``ops/cuda_lzx.py``) emits each
+    lane's token trace and the native C++ resolver
+    (``native.lzx_resolve_traces``) turns the traces into bytes, with the
+    E8 call-translation untransform (lzxd.c:706-733). In segments, window
+    tails carry phase B across launches and E8 runs once at the end over
+    the pre-transform bytes.
+
+    ``decode_streams`` returns the bytes of every stream, or None when it
+    declines (a flagged lane, an intel E8 header where chunks of one
+    stream or DELTA blocks forbid it, a resolver error); the caller then
+    takes its own fallback. Every decline is counted in ``declines``."""
+
+    def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
+                       decline_on_intel=False, is_delta=False, refs=None):
+        """streams: list of bytes; out_lens: their decoded sizes; refs:
+        DELTA reference data per stream (preloaded at the window tail,
+        lzxd.c:348-382). ``decline_on_intel``: the streams are chunks of
+        one stream (CHM section 1), whose E8 state is stream-global
+        (lzxd.c:707-713), so an E8 header declines."""
+        if not streams:
+            return []
+        if not native.available():
+            self.declines["native resolver unavailable"] += 1
+            return None
+        lo, hi = (17, 25) if is_delta else (15, 21)
+        if not lo <= window_bits <= hi:
+            self.declines["window size outside LZX's"] += 1
+            return None
+        job = dict(streams=streams, out_lens=list(out_lens),
+                   window_bits=window_bits, n_threads=n_threads,
+                   intel_declines=decline_on_intel or is_delta,
+                   is_delta=is_delta,
+                   refs=list(refs) if refs else [b""] * len(streams),
+                   outs=[None] * len(streams))
+        return job["outs"] if self._run(job) else None
+
+    # -- batching --------------------------------------------------------
 
     def _upload(self, idxs, job):
         """Streams, lengths and history budgets (DELTA reference bytes)
@@ -443,14 +475,6 @@ class CudaLzxEngine(_Engine):
 
     # -- phase B ---------------------------------------------------------
 
-    def _counts_ok(self, cnt, lanes, targets):
-        """Row 0 clear and row 1 at its target on the given lanes."""
-        if (cnt[0, lanes] != 0).any() or \
-                (cnt[1, lanes] != np.asarray(targets)[lanes]).any():
-            self.declines["flagged lane"] += 1
-            return False
-        return True
-
     def _intel_declined(self, iflags, ifszs, job):
         if job["intel_declines"] and any(iflags) and any(ifszs):
             self.declines["intel E8 in chunked or DELTA streams"] += 1
@@ -461,24 +485,6 @@ class CudaLzxEngine(_Engine):
     def _hists(idxs, job):
         return window_tails([job["refs"][i] for i in idxs],
                             job["window_bits"])
-
-    def _pull(self, tok, litw, ntok):
-        e0 = self._mark()
-        tmax = max(1, int(ntok.max()))
-        tok = tok[:, :tmax].contiguous().cpu().numpy()
-        litw = litw[:, :tmax].contiguous().cpu().numpy()
-        self._add("trace_pull_ms", e0, self._mark())
-        return tok, litw
-
-    def _resolve(self, tok, litw, sizes, iflags, ifszs, hists, job):
-        """``resolve_lzx``, timed; a resolver error is a decline."""
-        t0 = time.perf_counter()
-        parts = resolve_lzx(tok, litw, sizes, iflags, ifszs,
-                            job["window_bits"], hists, job["n_threads"])
-        self._add("host_resolve_ms", t0, time.perf_counter(), host=True)
-        if parts is None:
-            self.declines["host resolve error"] += 1
-        return parts
 
     def _finish(self, h, job):
         idxs, sizes = h["idxs"], h["sizes"]
@@ -509,8 +515,6 @@ class CudaLzxEngine(_Engine):
         the decoder state carried in the K3 state records; window tails
         chain phase B across segments and E8 runs once at the end (the
         window holds pre-transform bytes, lzxd.c:706-733)."""
-        from libmspack_tpu import native
-
         n = len(idxs)
         totals = np.array([int(job["out_lens"][i]) for i in idxs])
         parts = [np.empty(int(t), np.uint8) for t in totals]
@@ -549,6 +553,147 @@ class CudaLzxEngine(_Engine):
         for j, i in enumerate(idxs):
             if iflags[j] and ifszs[j]:
                 native.e8_decode_buf(parts[j], ifszs[j], 0)
+            job["outs"][i] = parts[j].tobytes()
+        self.n_decoded += n
+        return True
+
+
+def wrap_spans(tok, base, window_bits):
+    """The matches among one lane's compacted tokens (int32 numpy) whose
+    destination crosses a window lap end: ``(starts, lap ends)``, int64
+    output positions; ``base`` is the lane's position before its first
+    token. These are the matches at which the reference Quantum codec
+    delivers a whole lap mid-match (codecs/qtm.py:309-322)."""
+    wsize = 1 << window_bits
+    tok = tok.astype(np.int64)
+    match = (tok & cl.TOK_MATCH) != 0
+    lens = np.where(match, tok & 0xFFFFF, tok & 7)
+    starts = base + np.cumsum(lens) - lens
+    s = starts[match & ((starts % wsize) + lens > wsize)]
+    return s, (s // wsize + 1) * wsize
+
+
+class CudaQtmEngine(_StreamEngine):
+    """Batched Quantum stream decode through K4 and host phase B.
+
+    Each stream is a CAB Quantum folder with the 0xFF trailer after every
+    block (cabd.c:1327-1332), one per lane. Quantum's adaptive models make
+    a stream strictly sequential (qtmd.c:92-166), so streams are the
+    parallel axis. K4 (``ops/cuda_qtm.py``) emits each lane's token trace
+    in K3's format and the native LZX resolver with no E8
+    (``native.lzx_resolve_traces``) is phase B. In segments the models,
+    cursor and frame count stay in K4's state records between launches
+    and window tails carry phase B across them.
+
+    ``decode_streams`` returns the bytes of every stream, or None when it
+    declines (a flagged lane, a resolver error); the caller's scalar path
+    then raises the reference's error. Every decline is counted in
+    ``declines``. ``wrap_spans`` holds, per stream of the last call, the
+    ``wrap_spans`` of its matches that crossed a window lap end."""
+
+    def decode_streams(self, streams, out_lens, window_bits, n_threads=None):
+        """streams: list of bytes; out_lens: their decoded sizes."""
+        self.wrap_spans = [(np.zeros(0, np.int64),) * 2 for _ in streams]
+        if not streams:
+            return []
+        if not native.available():
+            self.declines["native resolver unavailable"] += 1
+            return None
+        if not 10 <= window_bits <= 21:
+            self.declines["window size outside Quantum's"] += 1
+            return None
+        job = dict(streams=streams, out_lens=list(out_lens),
+                   window_bits=window_bits, n_threads=n_threads,
+                   outs=[None] * len(streams))
+        return job["outs"] if self._run(job) else None
+
+    def _upload(self, idxs, job):
+        streams, lens = cq.pack_streams([job["streams"][i] for i in idxs])
+        return streams.to(self.device), lens.to(self.device)
+
+    def _launch(self, k, idxs, job):
+        """Pack, upload and launch K4 for one batch; nothing waits."""
+        sizes = [int(job["out_lens"][i]) for i in idxs]
+        targets = torch.tensor(sizes, dtype=torch.int32)
+        with self._on(k):
+            e0 = self._mark()
+            streams, lens = self._upload(idxs, job)
+            targets = targets.to(self.device)
+            e1 = self._mark()
+            tok, litw, cnt = cq.qtm_phase_a(streams, lens, targets,
+                                            job["window_bits"],
+                                            tcap=max(1, max(sizes)))
+            e2 = self._mark()
+        self.lanes += len(idxs)
+        return dict(k=k, idxs=idxs, sizes=sizes, tok=tok, litw=litw,
+                    cnt=cnt, marks=(e0, e1, e2))
+
+    def _note_wraps(self, i, tok, cnt, lane, base, wb):
+        """Add stream i's lap-crossing matches of one launch (lane
+        ``lane``, output position ``base`` before it)."""
+        if cnt[4, lane]:
+            s, e = wrap_spans(tok[lane, :cnt[2, lane]], base, wb)
+            old = self.wrap_spans[i]
+            self.wrap_spans[i] = (np.concatenate([old[0], s]),
+                                  np.concatenate([old[1], e]))
+
+    def _finish(self, h, job):
+        idxs, sizes = h["idxs"], h["sizes"]
+        n = len(idxs)
+        with self._on(h["k"]):
+            cnt = h["cnt"].cpu().numpy()
+            e0, e1, e2 = h["marks"]
+            self._add("upload_ms", e0, e1)
+            self._add("k4_ms", e1, e2)
+            if not self._counts_ok(cnt, slice(0, n), sizes):
+                return False
+            tok, litw = self._pull(h["tok"], h["litw"], cnt[2, :n])
+            parts = self._resolve(tok, litw, sizes, [0] * n, [0] * n, None,
+                                  job)
+        if parts is None:
+            return False
+        for j, i in enumerate(idxs):
+            self._note_wraps(i, tok, cnt, j, 0, job["window_bits"])
+            job["outs"][i] = parts[j].tobytes()
+        self.n_decoded += n
+        return True
+
+    def _segmented(self, idxs, seg, job):
+        """Decode in launches of <= seg bytes per lane (frame-aligned),
+        the decoder state carried in the K4 state records; window tails
+        chain phase B across segments."""
+        n = len(idxs)
+        wb = job["window_bits"]
+        totals = np.array([int(job["out_lens"][i]) for i in idxs])
+        parts = [np.empty(int(t), np.uint8) for t in totals]
+        tails = window_tails([b""] * n, wb)
+        e0 = self._mark()
+        streams, lens = self._upload(idxs, job)
+        self._add("upload_ms", e0, self._mark())
+        self.lanes += n
+        state = None
+        for pos, targets in segment_targets(totals, seg):
+            e0 = self._mark()
+            tok, litw, cnt, state = cq.qtm_phase_a(
+                streams, lens,
+                torch.tensor(targets, dtype=torch.int32).to(self.device),
+                wb, tcap=seg, state=state, return_state=True)
+            cnt = cnt.cpu().numpy()
+            self._add("k4_ms", e0, self._mark())
+            if not self._counts_ok(cnt, pos < totals, targets):
+                return False
+            tok, litw = self._pull(tok, litw, cnt[2])
+            got = self._resolve(tok, litw, targets - pos, [0] * n, [0] * n,
+                                tails, job)
+            if got is None:
+                return False
+            for j, i in enumerate(idxs):
+                if targets[j] > pos[j]:
+                    self._note_wraps(i, tok, cnt, j, pos[j], wb)
+                    parts[j][pos[j]:targets[j]] = got[j]
+                    tails[j] = np.concatenate([tails[j], got[j]])[
+                        -len(tails[j]):]
+        for j, i in enumerate(idxs):
             job["outs"][i] = parts[j].tobytes()
         self.n_decoded += n
         return True
