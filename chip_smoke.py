@@ -43,17 +43,27 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
 14. the bench's 24 MiB Quantum cabinet (four 6 MiB folders, window 2^16)
     through create_cab_decompressor(engine="cuda"): bytes equal, K4
     launched, no decline; engine="native" beside it; then the four
-    folders through CudaQtmEngine in one call.
+    folders through CudaQtmEngine in one call;
+15. the probe tools P1-P6 (libmspack_tpu_torch.tools): each tool's main()
+    at its own shapes, as ``python -m libmspack_tpu_torch.tools.<name>``
+    runs it, then every run of a probe kernel against its plain version.
 
 Each kernel's launch count is set to 0 just before its main path runs and
-read just after. The next-to-last line is a JSON object with each kernel's
-launches on the main path, its largest difference from the plain version,
-its time, the plain version's, and its bound: the larger of the bytes it
-must move over the card's memory rate and its serial chain (the tokens of
-its longest lane, each at least one dependent step of one SM) over the
-SM clock. No PyTorch call computes these decoders, so ``library_ms`` is
-null. The last line is {"ok": true, "device": {...}}. It imports neither
-JAX nor the JAX package nor bench.py.
+read just after (for a probe, its tool's main(), where a kernel replayed
+from a CUDA graph counts once per replay). The next-to-last line is
+a JSON object with each kernel's launches on the main path, its largest
+difference from the plain version, its time, the plain version's, and its
+bound: the larger of the bytes it must move over the card's memory rate
+and its serial chain (for a decoder the tokens of its longest lane, each
+at least one dependent step of one SM; for a probe its steps within one
+lane, an indexed load or an ALU stage one step, a search or reduction
+over n values a tree of depth log2 n, a loop that ends early as far as
+this run's data takes it: ``tools.Work``) over the SM clock. No PyTorch
+call computes these decoders, so their ``library_ms`` is null; for the
+gather probes it is the time of ``torch.gather`` on the same inputs (and
+the remainder, for P6's). A probe's time is the largest of its tool's
+shapes. The last line is {"ok": true, "device": {...}}. It imports
+neither JAX nor the JAX package nor bench.py nor tools/.
 """
 from __future__ import annotations
 
@@ -104,14 +114,14 @@ def bound(nbytes, chain):
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-          chain):
+          chain, library_ms=None):
     """One kernel's object of the kernels line."""
     b_ms, b_by = bound(nbytes, chain)
     return {"name": name, "route": "cuda",
             "source": f"libmspack_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": library_ms}
 
 
 def trace_bytes(lens, cnt, state_bytes=0):
@@ -252,6 +262,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     entries.append(lzx_phases(device, total_mb, lzx_big, chm_mb, reps,
                               clock))
     entries.append(qtm_phases(device, qtm_mb, lzx_big, reps, clock))
+    entries.extend(probe_phases(device, clock))
     bad = [e["name"] for e in entries if e["max_abs_err"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: "
@@ -880,6 +891,58 @@ def qtm_phases(device, total_mb, edge_big, reps, clock):
     clock.lap("14 Quantum cabinet through the driver and the engine")
     return entry("k4_qtm", "qtm.cu", "libmspack_tpu/ops/pallas_qtm.py:125",
                  k4_launches, e4, k4_ms, k4_plain_ms, k4_bytes, k4_chain)
+
+
+PROBE_TOOLS = ("micro_vec", "micro_skel", "micro_copy", "mosaic_probe",
+               "micro_gather", "micro_gather2")
+
+
+def probe_phases(device, clock):
+    """Phase 15: each probe tool's main() with its kernels' launch counts
+    set to 0 before and read after, then each run's result against the
+    plain version on the same inputs. On the CPU (a rehearsal) the tools
+    run their plain versions with small library rows. Returns one entry
+    per probe kernel: the time, bound and library time of its largest
+    run, the largest difference over all its runs."""
+    import importlib
+
+    import torch
+
+    entries = []
+    for name in PROBE_TOOLS:
+        mod = importlib.import_module(f"libmspack_tpu_torch.tools.{name}")
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+        records = mod.main([], device=device)
+        launches = dict(mod.LAUNCHES)
+        runs = {k: [] for k in mod.REPLACES}
+        for r in records:
+            want, plain_ms = timed(r.plain, torch.device("cpu"))
+            if want.shape != r.out.shape:
+                raise AssertionError(f"{r.kernel} {r.label}: shape "
+                                     f"{tuple(r.out.shape)}, plain "
+                                     f"{tuple(want.shape)}")
+            err = int((r.out.long() - want.long()).abs().max()) \
+                if want.numel() else 0
+            runs[r.kernel].append((r, err, plain_ms))
+        for kernel, done in runs.items():
+            if not done:
+                raise AssertionError(f"{kernel}: {name}.main() never ran it")
+            if device.type == "cuda" and launches[kernel] < 1:
+                raise AssertionError(f"{kernel} never launched in {name}")
+            r, _, plain_ms = max(done, key=lambda d: d[0].nbytes)
+            err = max(e for _, e, _ in done)
+            lib = "" if r.library_ms is None else \
+                f", library {r.library_ms:.4f} ms"
+            print(f"{kernel}: {len(done)} runs, max abs err {err}; "
+                  f"{r.label}: kernel {r.ms:.4f} ms, plain {plain_ms:.1f} "
+                  f"ms{lib}; launches {launches[kernel]}; bound "
+                  f"{bound(r.nbytes, r.chain)}", flush=True)
+            entries.append(entry(kernel, mod.SOURCE, mod.REPLACES[kernel],
+                                 launches[kernel], err, r.ms, plain_ms,
+                                 r.nbytes, r.chain, r.library_ms))
+        clock.lap(f"15 probes: {name}")
+    return entries
 
 
 def main() -> int:

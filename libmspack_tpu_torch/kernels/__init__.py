@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (K1 inflate, K2 resolve, K3 LZX,
-K4 Quantum).
+K4 Quantum, and the probes P1-P6 of ``libmspack_tpu_torch.tools``).
 
 The sources in ``libmspack_tpu_torch/csrc`` are compiled at first use by
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per ``.cu`` file, all
@@ -46,6 +46,15 @@ _SIGNATURES = {
                    ctypes.c_int32, _P, _P],
     "msp_k4_qtm": [_P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_int32,
                    _P, _P],
+    "msp_p1_vec": [_I, _I, _I, _I, _P, _P, _P],
+    "msp_p2_skel": [_P, _I64, _P, _I, _I, _I, _I, _P, _P, _P],
+    "msp_p3_copy": [_P, _P, _I, _P, _P, _P, _P],
+    "msp_p4_probe": [_I, _P, _P, _I64, _P, _P],
+    "msp_p5_dyngather": [_P, _P, _P, _I, _I, _I, _P],
+    "msp_p5_masksum": [_P, _P, _P, _I, _I, _P],
+    "msp_p5_symbol_step": [_P, _P, _P, _P, _I, _I, _P],
+    "msp_p6_masksum": [_P, _P, _P, _I, _I, _P],
+    "msp_p6_symbol_step": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -1,0 +1,269 @@
+"""P5: per-lane gathers, the primitives of an entropy decoder.
+
+The port of ``tools/micro_gather.py``: a gather along either axis of an
+(H, L) table (``dyngather``), a per-lane probe of a 288-row table by the
+TPU's compare/select sweep (``masksum``), and 256 steps of a mock DEFLATE
+symbol (``symbol_step``: refill, 14-compare length find, meta probe,
+consume); ``csrc/probes_micro_gather.cu`` says what each computes. Tables
+are ``(rows, L)``, lane l in column l. Beside each gather, PyTorch's own
+call (``torch.gather``, ``torch.take``) is timed as the library row, as the
+tool timed XLA's.
+
+Run on the card: ``python -m libmspack_tpu_torch.tools.micro_gather``
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from . import Record, Work, int32, launch, log2c, on, tensor, wrap32
+from .timing import header, time_ms
+
+N = 288            # rows of a per-lane table
+M32 = 0xFFFFFFFF
+GATHER_SHAPES = [(0, 8, 128), (0, 16, 128), (0, 32, 128), (0, 288, 128),
+                 (0, 1024, 128), (0, 4096, 128), (0, 32768, 128),
+                 (0, 288, 1024), (0, 1024, 1024),
+                 (1, 8, 128), (1, 8, 1024), (1, 64, 128)]
+MASKSUM_SHAPES = [(8, 128), (8, 1024)]
+SYMBOL_LANES = 8 * 1024
+SYMBOL_T = 256
+
+SOURCE = "probes_micro_gather.cu"
+REPLACES = {"p5_dyngather_axis0": "tools/micro_gather.py:67",
+            "p5_dyngather_axis1": "tools/micro_gather.py:82",
+            "p5_masksum": "tools/micro_gather.py:132",
+            "p5_symbol_step": "tools/micro_gather.py:206"}
+LAUNCHES = dict.fromkeys(REPLACES, 0)
+
+
+def dyngather(t, i, axis, device="cuda") -> torch.Tensor:
+    """``take_along_axis(t, i, axis)`` for int32 ``(H, L)`` t and i; an
+    index outside its axis is clamped to it."""
+    t, i = int32(t, "t"), int32(i, "i", t.shape)
+    if t.dim() != 2 or axis not in (0, 1):
+        raise ValueError("t must be 2-D and axis 0 or 1")
+    dev, (t, i) = on(device, t, i)
+    if dev.type == "cpu":
+        return dyngather_plain(t, i, axis)
+    out = torch.empty_like(t)
+    launch(LAUNCHES, f"p5_dyngather_axis{axis}", "msp_p5_dyngather", dev,
+           t.data_ptr(), i.data_ptr(), out.data_ptr(), t.shape[0], t.shape[1],
+           axis)
+    return out
+
+
+def dyngather_plain(t, i, axis):
+    H, L = t.shape
+    if axis == 0:
+        return t[i.long().clamp(0, H - 1), torch.arange(L)]
+    return t[torch.arange(H)[:, None], i.long().clamp(0, L - 1)]
+
+
+def masksum(tab, idx, device="cuda") -> torch.Tensor:
+    """``tab[idx[l], l]`` for each lane l of idx (any shape, L elements)
+    from an int32 ``(rows, L)`` table, 0 where idx is not a row; the
+    kernel sweeps every row as the TPU did. Returns idx's shape."""
+    tab, idx = int32(tab, "tab"), int32(idx, "idx")
+    if tab.dim() != 2 or tab.shape[1] != idx.numel():
+        raise ValueError("tab must be (rows, L) with L = idx.numel()")
+    dev, (tab, idx) = on(device, tab, idx)
+    if dev.type == "cpu":
+        return masksum_plain(tab, idx)
+    out = torch.empty_like(idx)
+    launch(LAUNCHES, "p5_masksum", "msp_p5_masksum", dev, tab.data_ptr(),
+           idx.data_ptr(), out.data_ptr(), tab.shape[0], idx.numel())
+    return out
+
+
+def masksum_plain(tab, idx):
+    rows, L = tab.shape
+    i = idx.flatten().long()
+    got = tab[i.clamp(0, rows - 1), torch.arange(L)]
+    return torch.where((i >= 0) & (i < rows), got, 0).view(idx.shape)
+
+
+def check_symbol_inputs(meta, limit, stream):
+    """(meta, limit, stream) as contiguous int32 of the shapes
+    ``symbol_step`` takes; raises on others."""
+    meta = int32(meta, "meta")
+    L = meta.shape[1] if meta.dim() == 2 else -1
+    if meta.shape != (N, L):
+        raise ValueError(f"meta must be ({N}, L)")
+    return (meta, int32(limit, "limit", (16, L)),
+            int32(stream, "stream", (32, L)))
+
+
+def symbol_step(meta, limit, stream, steps=SYMBOL_T, device="cuda"):
+    """``steps`` mock DEFLATE symbols per lane: meta int32 ``(288, L)``,
+    limit int32 ``(16, L)`` (rows 1-14 used), stream ``(32, L)`` uint32
+    words (or their int32 bits). Returns each lane's sum of meta, int32
+    ``(L,)`` (the tool's ``(8, L // 8)`` flattened)."""
+    meta, limit, stream = check_symbol_inputs(meta, limit, stream)
+    dev, (meta, limit, stream) = on(device, meta, limit, stream)
+    if dev.type == "cpu":
+        return symbol_step_plain(meta, limit, stream, steps)
+    L = meta.shape[1]
+    out = torch.empty(L, dtype=torch.int32, device=dev)
+    launch(LAUNCHES, "p5_symbol_step", "msp_p5_symbol_step", dev,
+           meta.data_ptr(), limit.data_ptr(), stream.data_ptr(),
+           out.data_ptr(), L, steps)
+    return out
+
+
+def len_find_plain(peek, limit, work: Work = None):
+    """The mock canonical length find on all lanes: the first bl in 1..14
+    with peek >> (15 - bl) below limit[bl], else (15, 0). ``work`` tallies
+    the limits each lane compared and the compares in a row (at most a
+    tree over all 14)."""
+    length = torch.full_like(peek, 15)
+    code = torch.zeros_like(peek)
+    for bl in range(1, 15):
+        c = peek >> (15 - bl)
+        searching = length == 15
+        if work is not None:
+            work.read("limit", limit, bl, searching)
+        hit = (c < limit[bl].long()) & searching
+        length = torch.where(hit, bl, length)
+        code = torch.where(hit, c, code)
+    if work is not None:
+        work.add(length.clamp(max=log2c(14)))
+    return length, code
+
+
+def symbol_step_plain(meta, limit, stream, steps=SYMBOL_T,
+                      work: Work = None):
+    """Plain version of ``symbol_step``; ``work`` tallies what it read and
+    each lane's chain: a step is the refill, the length find, the meta
+    load and the consume."""
+    L = meta.shape[1]
+    lanes = torch.arange(L)
+    words = stream.long() & M32
+    bitbuf, navail, widx, acc = (torch.zeros(L, dtype=torch.int64)
+                                 for _ in range(4))
+    for _ in range(steps):
+        w = words[widx & 31, lanes]
+        refill = navail < 32
+        bitbuf = torch.where(refill, (bitbuf | (w << navail)) & M32, bitbuf)
+        navail = (navail + 32).clamp(max=32)
+        length, code = len_find_plain(bitbuf & 0x7FFF, limit, work)
+        mi = (code + length * 7) % N
+        m = meta[mi, lanes].long()
+        if work is not None:
+            work.read("stream", stream, widx & 31, refill)
+            work.read("meta", meta, mi)
+            work.add(3)
+        consume = length + (m & 7)
+        bitbuf = bitbuf >> consume
+        navail = navail - consume
+        widx = widx + 1
+        acc = acc + m
+    return wrap32(acc)
+
+
+def bench_library(dev):
+    """The tool's XLA gathers as PyTorch calls (library rows); small
+    shapes on the CPU."""
+    print("== library gathers (torch.gather, torch.take) ==", flush=True)
+    rng = np.random.RandomState(0)
+    shapes = [(288, 1024), (1024, 1024)] if dev.type == "cpu" else \
+        [(32768, 128), (32768, 1024), (288, 1024), (1024, 1024)]
+    for H, L in shapes:
+        table = tensor(rng.randint(0, H, (H, L), dtype=np.int32)).to(dev)
+        idx = tensor(rng.randint(0, H, (H, L), dtype=np.int32)).long().to(dev)
+        _, ms = time_ms(lambda: torch.gather(table, 0, idx), dev)
+        print(f"  gather axis0 ({H},{L}): {ms:.3f} ms  "
+              f"{H * L / ms / 1e6:.2f} G elem/s", flush=True)
+    table = torch.arange(32768, dtype=torch.int32, device=dev)
+    idx = tensor(rng.randint(0, 32768, 1024, dtype=np.int32)).long().to(dev)
+    _, ms = time_ms(lambda: torch.take(table, idx), dev)
+    print(f"  flat take (1024 from 32768): {ms:.3f} ms "
+          f"{1024 / ms / 1e3:.2f} M probe/s", flush=True)
+
+
+def bench_gather(dev) -> list[Record]:
+    print("== dynamic gather kernel ==", flush=True)
+    rng = np.random.RandomState(1)
+    records = []
+    for axis, H, L in GATHER_SHAPES:
+        if dev.type == "cpu" and H * L > 1 << 17:   # small on the CPU
+            continue
+        t = tensor(rng.randint(0, 100, (H, L), dtype=np.int32))
+        i = tensor(rng.randint(0, H if axis == 0 else L, (H, L),
+                               dtype=np.int32))
+        td, id_ = t.to(dev), i.to(dev)
+        out, ms = time_ms(lambda: dyngather(td, id_, axis, dev), dev)
+        il = id_.long()
+        _, lib_ms = time_ms(lambda: torch.gather(td, axis, il), dev)
+        print(f"  dg axis{axis} ({H},{L}): {ms:.3f} ms  "
+              f"{H * L / ms / 1e6:.2f} G elem/s  (torch.gather "
+              f"{lib_ms:.3f} ms)", flush=True)
+        records.append(Record(
+            f"p5_dyngather_axis{axis}", f"({H},{L})", ms, out.cpu(),
+            lambda t=t, i=i, a=axis: dyngather(t, i, a, "cpu"),
+            nbytes=12 * H * L, chain=1, library_ms=lib_ms))
+    return records
+
+
+def bench_masksum(dev) -> list[Record]:
+    print(f"== mask-sum probe ({N}-entry per-lane tables) ==", flush=True)
+    rng = np.random.RandomState(2)
+    records = []
+    for SL, LN in MASKSUM_SHAPES:
+        L = SL * LN
+        tab = tensor(rng.randint(0, N, (N, L), dtype=np.int32))
+        idx = tensor(rng.randint(0, N, (SL, LN), dtype=np.int32))
+        tabd, idxd = tab.to(dev), idx.to(dev)
+        out, ms = time_ms(lambda: masksum(tabd, idxd, dev), dev)
+        il = idxd.long().view(1, L)
+        _, lib_ms = time_ms(lambda: torch.gather(tabd, 0, il), dev)
+        print(f"  mask-sum {N} x {L} lanes: {ms:.4f} ms  "
+              f"{L / ms / 1e3:.1f} M probe/s  (torch.gather {lib_ms:.4f} ms)",
+              flush=True)
+        records.append(Record(
+            "p5_masksum", f"{N} x {L}", ms, out.cpu(),
+            lambda tab=tab, idx=idx: masksum(tab, idx, "cpu"),
+            nbytes=12 * L, chain=1, library_ms=lib_ms))
+    return records
+
+
+def symbol_inputs(L, seed):
+    """Seeded (meta, limit, stream) as the tool drew them."""
+    rng = np.random.RandomState(seed)
+    meta = rng.randint(0, 8, (N, L), dtype=np.int32)
+    limit = rng.randint(1, 1 << 15, (16, L), dtype=np.int32)
+    stream = rng.randint(0, 1 << 30, (32, L)).astype(np.uint32)
+    return tensor(meta), tensor(limit), tensor(stream)
+
+
+def bench_symbol_step(dev) -> Record:
+    print("== mock symbol step ==", flush=True)
+    L, T = SYMBOL_LANES, SYMBOL_T
+    ins = symbol_inputs(L, 3)
+    insd = [t.to(dev) for t in ins]
+    out, ms = time_ms(lambda: symbol_step(*insd, T, dev), dev)
+    sym = T * L
+    print(f"  {sym} symbols in {ms:.3f} ms = {sym / ms / 1e3:.1f} M sym/s "
+          f"(~{sym * 4 / ms / 1e3:.0f} MB/s at 4 B/sym), "
+          f"{ms * 1e6 / T:.0f} ns/step", flush=True)
+    work = Work(L)
+    symbol_step_plain(*ins, T, work)
+    return Record("p5_symbol_step", f"{L} lanes x {T}", ms, out.cpu(),
+                  lambda: symbol_step(*ins, T, "cpu"),
+                  nbytes=work.nbytes() + 4 * L, chain=work.chain())
+
+
+def main(argv=(), device="cuda") -> list[Record]:
+    dev, _ = on(device)
+    print(header(dev), flush=True)
+    bench_library(dev)
+    records = bench_gather(dev)
+    records += bench_masksum(dev)
+    records.append(bench_symbol_step(dev))
+    return records
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

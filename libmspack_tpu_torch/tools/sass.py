@@ -1,0 +1,109 @@
+"""What nvcc made of the probe kernels: a summary of each kernel's SASS.
+
+A probe times a mechanism only if the compiled kernel still performs it:
+a sweep whose result the compiler can predict may be folded into one load
+or dropped. For each probe kernel in the library ``kernels.lib()`` builds,
+this prints its instruction count, its loads and stores by memory space,
+its compares and selects, and its backward branches (loops), and writes
+the whole listing to a file::
+
+    python -m libmspack_tpu_torch.tools.sass [listing.txt [binary]]
+
+(``binary``: another library or cubin to read instead). It needs
+``nvcc`` and ``cuobjdump`` (the CUDA toolkit), not a card.
+"""
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+
+from .. import kernels
+
+KERNELS = ("p1_sweep_kernel", "p1_vec_kernel", "p2_skel_kernel",
+           "p3_copy_kernel", "p5_dyngather_kernel", "p5_masksum_kernel",
+           "p5_symbol_kernel", "p6_masksum_kernel", "p6_symbol_kernel",
+           "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",
+           "minscalar", "smem_scalar", "u64shift", "dma_row")
+OPS = ("LDG", "LDS", "LDL", "LD", "STG", "STS", "STL", "ST", "ISETP", "SEL",
+       "SHFL", "REDUX")   # LD, ST: generic addresses
+
+_FUNC = re.compile(r"^\s*Function : (\S+)")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                   r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def listing(binary: str = None) -> str:
+    """``cuobjdump -sass`` of ``binary`` (by default the kernel library,
+    built if need be)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if binary is None:
+        kernels.lib()
+        binary = kernels.build_info["path"]
+    r = subprocess.run([tool, "-sass", binary], capture_output=True,
+                       text=True, check=True)
+    return r.stdout
+
+
+def _kernel(mangled: str):
+    """A probe kernel's name, with its bool template argument if it has
+    one (``p1_sweep_kernel<true>``); None for other functions."""
+    name = next((k for k in KERNELS if k in mangled), None)
+    for arg, word in (("ILb1E", "<true>"), ("ILb0E", "<false>")):
+        if name and arg in mangled:
+            return name + word
+    return name
+
+
+def summarise(text: str) -> dict:
+    """``{kernel: Counter}`` for the probe kernels in a SASS listing: each
+    opcode in OPS (by its base name), ``insns`` and ``loops`` (branches to
+    an earlier address)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            name = _kernel(m.group(1))
+            cur = out.setdefault(name, Counter()) if name else None
+            continue
+        m = _INSN.search(line)
+        if cur is None or not m:
+            continue
+        addr, op, args = int(m.group(1), 16), m.group(2), m.group(3)
+        if op == "NOP":
+            continue
+        cur["insns"] += 1
+        base = op.split(".")[0]
+        if base in OPS:
+            cur[base] += 1
+        t = re.search(r"0x([0-9a-f]+)", args)
+        if base == "BRA" and t and int(t.group(1), 16) < addr:
+            cur["loops"] += 1
+    return out
+
+
+def main(argv=()) -> dict:
+    text = listing(argv[1] if len(argv) > 1 else None)
+    path = argv[0] if argv else None
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(text)
+    found = summarise(text)
+    for k in KERNELS:
+        names = sorted(n for n in found if n.split("<")[0] == k)
+        if not names:
+            print(f"{k}: not in the library", flush=True)
+        for n in names:
+            c = found[n]
+            ops = " ".join(f"{o} {c[o]}" for o in OPS if c[o])
+            print(f"{n}: {c['insns']} insns, {c['loops']} loops; {ops}",
+                  flush=True)
+    return found
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

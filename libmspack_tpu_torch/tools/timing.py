@@ -1,0 +1,78 @@
+"""Timing for the probe tools: the port's counterpart of ``tools/devtime.py``.
+
+The TPU tools timed a dependent chain of calls inside one jit, because
+their host saw a call complete late and with much noise. On the card,
+``time_ms`` captures ``reps`` calls in one CUDA graph and times a replay of
+it with two CUDA events, so the time is the device's and not the Python
+wrapper's (a probe kernel may take a few microseconds, less than the
+wrapper's host time). On the CPU (the plain versions) it reads the host
+clock, and ``header`` says so.
+"""
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+
+from . import CAPTURED
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def header(dev: torch.device) -> str:
+    """The first line a tool prints: what its times were taken on."""
+    if dev.type == "cuda":
+        return f"{card_line()} (CUDA events)"
+    return "cpu: plain versions, host clock (no device times)"
+
+
+def _detach(out):
+    """Copies of a result's tensors, out of the graph's memory pool."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_detach(o) for o in out)
+    return out.clone() if isinstance(out, torch.Tensor) else out
+
+
+def time_ms(fn, dev: torch.device, reps: int = 10, warmup: int = 1):
+    """``(fn()'s result, ms per call)``: on the card the mean over
+    ``reps`` calls after ``warmup`` calls (``fn`` must not synchronise the
+    device); on the CPU one call. On the card the graph is replayed twice
+    (a warm-up and the timed replay), so a probe kernel that ``fn``
+    launches once runs, and is counted, ``warmup + 2 * reps`` times."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        CAPTURED.clear()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                out = fn()
+        recorded = CAPTURED[:]
+        CAPTURED.clear()
+
+        def replay():
+            graph.replay()
+            for counts, name in recorded:
+                counts[name] += 1
+
+        replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay()
+        b.record()
+        b.synchronize()
+        return _detach(out), a.elapsed_time(b) / reps

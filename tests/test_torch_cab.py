@@ -171,9 +171,9 @@ def test_port_builds_the_bench_cabinets(compression):
 
 
 def test_port_imports_no_jax():
-    """Every port path, its inputs made by the port's own writers, in a
-    process that must end with neither jax, nor bench, nor any module of
-    the JAX package loaded."""
+    """Every port path, its inputs made by the port's own writers, and the
+    probe tools, in a process that must end with neither jax, nor bench,
+    nor any module of the JAX package or of tools/ loaded."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -183,6 +183,13 @@ def test_port_imports_no_jax():
         "from libmspack_tpu_torch import lzx_edge_cases, qtm_edge_cases\n"
         "from libmspack_tpu_torch.compress import cab_c, chm_c\n"
         "from libmspack_tpu_torch.system import BytesSink\n"
+        "from libmspack_tpu_torch.tools import (micro_copy, micro_gather,\n"
+        "    micro_gather2, micro_skel, micro_vec, mosaic_probe, sass,\n"
+        "    timing)\n"
+        "x, aux = mosaic_probe.inputs()\n"
+        "for name in mosaic_probe.PROBES:\n"
+        "    mosaic_probe.probe(name, x, aux.get(name), device='cpu')\n"
+        "micro_vec.search('vec', device='cpu', shape=(1, 8), steps=2)\n"
         "data = b'no jax here ' * 5000\n"
         "def one(d, blob):\n"
         "    s = BytesSink()\n"
@@ -208,8 +215,8 @@ def test_port_imports_no_jax():
         "assert one(c, chm) == data and c.cuda_engine.n_decoded == 1\n"
         "assert one(lt.create_chm_decompressor(engine='native'), chm)"
         " == data\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'bench')\n"
-        "       or m.split('.')[0] == 'libmspack_tpu']\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'bench', 'devtime')\n"
+        "       or m.split('.')[0] in ('libmspack_tpu', 'tools')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

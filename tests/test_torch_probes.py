@@ -1,0 +1,433 @@
+"""The probe tools P1-P6 of the port (libmspack_tpu_torch.tools) against the
+JAX tools under tools/, on the CPU.
+
+Each case runs the JAX tool's own Pallas kernel in interpret mode and the
+port's plain version on the same numpy inputs from a seed, and asserts
+equality (integers: exact). The JAX tools are loaded from tools/ with a
+stand-in for their timing module ``devtime``: it records the callable a
+tool would time instead of timing it (the real module also points JAX's
+compilation cache at a directory). ``pl.pallas_call`` is wrapped to run
+interpreted for the tools that call it bare, ``make_kernel(...,
+interpret=True)`` serves micro_skel and ``MC_INTERP=1`` micro_copy.
+
+Where a TPU kernel reads scratch it never wrote (micro_skel's windows,
+stage_store's stage, dma_row's other rows; interpret mode fills them with
+INT32_MIN), the port defines 0; the inputs here keep such values from the
+compared output, and the cases say where.
+"""
+import functools
+import importlib.util
+import os
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from libmspack_tpu_torch import kernels
+from libmspack_tpu_torch.tools import (Work, micro_copy, micro_gather,
+                                       micro_gather2, micro_skel, micro_vec,
+                                       mosaic_probe, sass)
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tools")
+SL, LN = 8, 128
+
+
+class _DevTime(types.ModuleType):
+    """Stands in for tools/devtime.py: ``time_chained`` records the step
+    a tool would time and returns 1 s."""
+
+    def __init__(self):
+        super().__init__("devtime")
+        self.steps = []
+
+    def warmup(self):
+        pass
+
+    def time_chained(self, make_step, init, n=64, **kw):
+        self.steps.append(make_step)
+        return 1.0
+
+
+def _closure(fn):
+    """A closure's free variables by name."""
+    return dict(zip(fn.__code__.co_freevars,
+                    (c.cell_contents for c in fn.__closure__)))
+
+
+@pytest.fixture
+def jax_tool(monkeypatch):
+    """load(name) -> (the JAX tool module, its devtime stand-in), with
+    pallas_call interpreted."""
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setenv("MC_INTERP", "1")
+    monkeypatch.setattr(sys, "path", [TOOLS] + sys.path)   # the tools add
+    #                                                        it themselves
+
+    def load(name):
+        dt = _DevTime()
+        monkeypatch.setitem(sys.modules, "devtime", dt)
+        spec = importlib.util.spec_from_file_location(
+            f"_jax_tool_{name}", os.path.join(TOOLS, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod, dt
+    return load
+
+
+def _t(a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+# ---------------------------------------------------------------- P1
+@pytest.mark.parametrize("variant", ["sweep", "vec"])
+def test_micro_vec_matches_jax(jax_tool, monkeypatch, variant):
+    mv, dt = jax_tool("micro_vec")
+    shape, steps = (2, 16), 8
+    monkeypatch.setattr(mv, "SL", shape[0])
+    monkeypatch.setattr(mv, "LN", shape[1])
+    monkeypatch.setattr(mv, "STEPS", steps)
+    mv.run_variant(variant)
+    want = np.asarray(dt.steps[0](jnp.zeros((1, *shape), jnp.int32)))
+    got = micro_vec.search(variant, device="cpu", shape=shape, steps=steps)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_micro_vec_variants_differ_on_no_match():
+    """sweep gives 0 and vec -1 where no row matches (micro_vec.py:57-59
+    against :67-68), so the two functions part."""
+    a = micro_vec.search("sweep", device="cpu", shape=(2, 16), steps=8)
+    b = micro_vec.search("vec", device="cpu", shape=(2, 16), steps=8)
+    assert not torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- P2
+@pytest.mark.parametrize("shape,steps", [((1, 16), 8), ((2, 16), 8),
+                                         ((1, 8), 12)])
+def test_micro_skel_matches_jax(jax_tool, shape, steps):
+    """L = 16 = G re-windows every lane each step; L = 32 leaves lanes
+    16-31 unwindowed in step 0 (the TPU read uninitialised VMEM there, the
+    port a zero window: both give a 0 word); L = 8 re-windows each lane
+    twice a step."""
+    ms, _ = jax_tool("micro_skel")
+    rng = np.random.RandomState(sum(shape) + steps)
+    L = shape[0] * shape[1]
+    stream = rng.randint(0, 1 << 30, (L, 4096)).astype(np.uint32)
+    seed = rng.randint(0, 1 << 20, shape).astype(np.int32)
+    run = ms.make_kernel(*shape, steps, interpret=True)
+    want = np.asarray(run(jnp.asarray(stream), jnp.asarray(seed)))
+    out, cnt = micro_skel.skel(_t(stream), _t(seed), steps, device="cpu")
+    np.testing.assert_array_equal(cnt.numpy(), want)
+    assert out.shape == (256, *shape)
+
+
+def test_micro_skel_output_ignores_the_stream():
+    """The tool's mock decode never finds a key: the length find stops at
+    bl = 1 (peek >> 14 <= 1 < 37), so key is 65536 or 65537, which no
+    (n * 1315423911) mod 2^20 for n < 288 equals; sym is 0 and every step
+    consumes 1 bit. Its outputs are the same for any stream, so they
+    cannot show when a window copy becomes visible."""
+    keys = {(n * 1315423911) & 0xFFFFF for n in range(288)}
+    assert not keys & {65536, 65537}
+    rng = np.random.RandomState(9)
+    seed = _t(rng.randint(0, 1000, (2, 16)).astype(np.int32))
+    outs = [micro_skel.skel(_t(rng.randint(0, 1 << 30, (32, 4096))
+                               .astype(np.uint32)), seed, 40, device="cpu")
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_interpret_dma_visible_before_wait():
+    """Pallas interpret mode completes an async copy when it starts, so a
+    read before the wait sees the copied data: the semantics the port's
+    micro_skel follows (the TPU kernel reads a window in the step that
+    starts its copy, micro_skel.py:51-68)."""
+    src = np.arange(SL * LN, dtype=np.int32).reshape(SL, LN)
+
+    def kernel(hbm, o_ref, win, sem):
+        cp = pltpu.make_async_copy(hbm, win, sem)
+        cp.start()
+        o_ref[:] = win[:]
+        cp.wait()
+
+    out = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((SL, LN), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)],
+        scratch_shapes=[pltpu.VMEM((SL, LN), jnp.int32),
+                        pltpu.SemaphoreType.DMA(())],
+        interpret=True)(jnp.asarray(src))
+    np.testing.assert_array_equal(np.asarray(out), src)
+
+
+# ---------------------------------------------------------------- P3
+def _copy_cases():
+    tok, lit, _ = micro_copy.make_tokens(seed=1)
+    prefix = tok[:48]
+    # matches past 128 elements: the TPU kernel's chunks leave LZ77's copy
+    longm = np.array([(0, 300, 0), (1, 300, 200), (1, 260, 50),
+                      (0, 7, 0), (1, 129, 1)], np.int32)
+    return {"tool_prefix": (prefix, lit), "long_matches": (longm, lit)}
+
+
+@pytest.mark.parametrize("case", ["tool_prefix", "long_matches"])
+def test_micro_copy_matches_jax(jax_tool, case):
+    mc, _ = jax_tool("micro_copy")
+    tok, lit = _copy_cases()[case]
+    run = mc.make_resolver(len(tok))
+    out, sc = run(jnp.zeros((1,), jnp.int32), jnp.asarray(tok),
+                  jnp.asarray(lit))
+    end = int(np.asarray(sc)[0])
+    got, gsc = micro_copy.resolve(torch.zeros(1, dtype=torch.int32), _t(tok),
+                                  _t(lit), device="cpu")
+    assert int(gsc[0]) == end == int(tok[:, 1].sum())
+    np.testing.assert_array_equal(got.numpy().reshape(-1)[:end],
+                                  np.asarray(out).reshape(-1)[:end])
+    lz = micro_copy.lz77_replay(tok, lit)
+    assert np.array_equal(lz, got.numpy().reshape(-1)[:end]) == \
+        (case == "tool_prefix")
+
+
+def test_micro_copy_rejects_reads_outside():
+    bad = torch.tensor([[1, 4, 1]], dtype=torch.int32)   # a match at 0
+    with pytest.raises(ValueError):
+        micro_copy.resolve(torch.zeros(1, dtype=torch.int32), bad,
+                           torch.zeros((258, 128), dtype=torch.int32),
+                           device="cpu")
+
+
+# ---------------------------------------------------------------- P4
+def _mosaic_jax(mp, name, x, aux):
+    """The tool's probe body, run as the pallas_call of its ``run`` (or,
+    for the two probes its CLI never ran, with their inputs passed)."""
+    out_shape = jax.ShapeDtypeStruct((SL, LN), jnp.int32)
+    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
+    if name == "smem_scalar":
+        return pl.pallas_call(
+            lambda x_ref, sm_ref, o_ref: mp.probe_smem_scalar(
+                x_ref, o_ref, sm_ref),
+            out_shape=out_shape,
+            in_specs=[vmem, pl.BlockSpec(memory_space=pltpu.SMEM)])(
+                jnp.asarray(x), jnp.asarray(aux))
+    if name == "dma_row":
+        return pl.pallas_call(
+            lambda x_ref, hbm, o_ref, win, sem: mp.probe_dma_row(
+                x_ref, o_ref, hbm, win, sem),
+            out_shape=out_shape,
+            in_specs=[vmem, pl.BlockSpec(memory_space=pltpu.ANY)],
+            scratch_shapes=[pltpu.VMEM((16, SL, LN), jnp.int32),
+                            pltpu.SemaphoreType.DMA(())])(
+                jnp.asarray(x), jnp.asarray(aux))
+    kernel, scratch = mp.PROBES[name]
+    return pl.pallas_call(kernel, out_shape=out_shape,
+                          scratch_shapes=list(scratch))(jnp.asarray(x))
+
+
+@pytest.mark.parametrize("name,x00", [(n, 16) for n in mosaic_probe.PROBES]
+                         + [("stage_store", -8), ("dma_row", 11),
+                            ("cond_vec", 3)])
+def test_mosaic_probe_matches_jax(jax_tool, name, x00):
+    """x[0, 0] = 16, -8: stage_store writes stage[0, 0] (other values leave
+    it unwritten: INT32_MIN on the TPU side, 0 in the port); dma_row
+    writes one row r = x[0, 0] mod 8, the only row compared."""
+    mp, _ = jax_tool("mosaic_probe")
+    x, aux = mosaic_probe.inputs(seed=x00 & 0xFF)
+    x = x.numpy().copy()
+    x[0, 0] = x00
+    a = aux.get(name)
+    want = np.asarray(_mosaic_jax(mp, name, x, None if a is None
+                                  else a.numpy()))
+    got = mosaic_probe.probe(name, _t(x), a, device="cpu").numpy()
+    if name == "dma_row":
+        r = x00 % SL
+        np.testing.assert_array_equal(got[r], want[r])
+        assert not np.delete(got, r, axis=0).any()
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_mosaic_probe_cli_defects_are_the_tools():
+    """The tool's CLI never ran smem_scalar (not in PROBES) and ran
+    dma_row with one input for a kernel of five refs; the port runs both
+    as the functions their bodies define."""
+    src = open(os.path.join(TOOLS, "mosaic_probe.py")).read()
+    assert '"smem_scalar"' not in src
+    assert "def probe_dma_row(x_ref, o_ref, hbm, win, sem)" in src
+    assert set(mosaic_probe.PROBES) >= {"smem_scalar", "dma_row"}
+
+
+# ---------------------------------------------------------------- P5
+@pytest.mark.parametrize("axis,H,L", [(0, 16, 128), (1, 8, 128)])
+def test_dyngather_matches_jax(jax_tool, axis, H, L):
+    mg, _ = jax_tool("micro_gather")
+    rng = np.random.RandomState(axis)
+    t = rng.randint(0, 100, (H, L)).astype(np.int32)
+    i = rng.randint(0, H if axis == 0 else L, (H, L)).astype(np.int32)
+    run = (mg.pallas_dyngather_axis0 if axis == 0
+           else mg.pallas_dyngather_axis1)(H, L)
+    want = np.asarray(run(jnp.asarray(t), jnp.asarray(i)))
+    got = micro_gather.dyngather(_t(t), _t(i), axis, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _first_timed(mod, make_args):
+    """Replace ``mod.timeit``: the first call runs the function it was
+    handed on ``make_args(*its args)`` and keeps the result; every call
+    then raises, which the tool reports and passes over."""
+    got = []
+
+    def timeit(fn, *args, **kw):
+        if not got:
+            got.append(np.asarray(fn(*make_args(*args))))
+        raise RuntimeError("not timed here")
+    mod.timeit = timeit
+    return got
+
+
+def test_masksum_matches_jax(jax_tool):
+    """The tool's first shape, (8, 128) lanes; indices outside the table
+    give 0 on both sides."""
+    mg, _ = jax_tool("micro_gather")
+    rng = np.random.RandomState(2)
+    tab = rng.randint(0, 288, (288, SL * LN)).astype(np.int32)
+    idx = rng.randint(-3, 300, (SL, LN)).astype(np.int32)
+    got = _first_timed(mg, lambda *a: (jnp.asarray(tab), jnp.asarray(idx)))
+    mg.bench_pallas_masksum()
+    out = micro_gather.masksum(_t(tab), _t(idx), device="cpu")
+    np.testing.assert_array_equal(out.numpy(), got[0])
+
+
+def test_symbol_step_matches_jax(jax_tool):
+    """The tool's own shape: 8192 lanes, 256 steps."""
+    mg, _ = jax_tool("micro_gather")
+    ins = micro_gather.symbol_inputs(micro_gather.SYMBOL_LANES, 3)
+    arrs = [t.numpy() for t in ins]
+    arrs[2] = arrs[2].view(np.uint32)
+    got = _first_timed(mg, lambda *a: [jnp.asarray(v) for v in arrs])
+    mg.bench_symbol_step()
+    out = micro_gather.symbol_step(*ins, device="cpu")
+    np.testing.assert_array_equal(out.numpy(), got[0].reshape(-1))
+
+
+# ---------------------------------------------------------------- P6
+def test_gather2_masksum_matches_jax(jax_tool):
+    mg2, dt = jax_tool("micro_gather2")
+    mg2.bench_masksum(1, 32)
+    call = _closure(dt.steps[0])["call"]
+    rng = np.random.RandomState(4)
+    tab = rng.randint(0, 288, (288, 32)).astype(np.int32)
+    idx = rng.randint(0, 288, (1, 32)).astype(np.int32)
+    want = np.asarray(call(jnp.asarray(tab), jnp.asarray(idx)))
+    got = micro_gather2.masksum(_t(tab), _t(idx), device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather2_symbol_step_matches_jax(jax_tool):
+    mg2, dt = jax_tool("micro_gather2")
+    mg2.bench_symbol_step(1, 32, T=8)
+    call = _closure(dt.steps[0])["call"]
+    meta, limit, stream = micro_gather.symbol_inputs(32, 5)
+    x = np.random.RandomState(6).randint(0, 100, (1, 32)).astype(np.int32)
+    want = np.asarray(call(jnp.asarray(meta.numpy()),
+                           jnp.asarray(limit.numpy()),
+                           jnp.asarray(stream.numpy().view(np.uint32)),
+                           jnp.asarray(x)))
+    got = micro_gather2.symbol_step(meta, limit, stream, _t(x), 8,
+                                    device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------- port
+MODULES = [micro_vec, micro_skel, micro_copy, mosaic_probe, micro_gather,
+           micro_gather2]
+
+
+@pytest.mark.parametrize("mod", MODULES,
+                         ids=lambda m: m.__name__.split(".")[-1])
+def test_tool_main_on_cpu(mod, capsys):
+    """Each tool's main() on the CPU (its plain versions, small library
+    rows): a record for every kernel the tool has, each equal to a second
+    plain run, and the header says no device time was taken."""
+    records = mod.main([], device="cpu")
+    assert {r.kernel for r in records} == set(mod.REPLACES)
+    for r in records:
+        assert torch.equal(r.out, r.plain()), r.kernel
+        assert r.nbytes > 0 and r.chain > 0
+    assert "no device times" in capsys.readouterr().out.splitlines()[0]
+    assert not any(mod.LAUNCHES.values())   # plain runs launch nothing
+
+
+def test_probes_refuse_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    x = torch.zeros((SL, LN), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        mosaic_probe.probe("minscalar", x)
+    with pytest.raises(RuntimeError, match="is_available"):
+        micro_vec.main([])
+
+
+def test_probe_kernels_in_the_library():
+    """Every probe source is built into kernels.lib() and every probe
+    entry point has its ctypes signature."""
+    srcs = {os.path.basename(s) for s in kernels._sources(["*.cu", "*.cuh"])}
+    for mod in MODULES:
+        assert mod.SOURCE in srcs
+    assert "probes_gather.cuh" in srcs
+    for name in ("msp_p1_vec", "msp_p2_skel", "msp_p3_copy", "msp_p4_probe",
+                 "msp_p5_dyngather", "msp_p5_masksum", "msp_p5_symbol_step",
+                 "msp_p6_masksum", "msp_p6_symbol_step"):
+        assert name in kernels._SIGNATURES
+
+
+@pytest.mark.parametrize("limit,length", [(1 << 15, 1), (0, 15)])
+def test_symbol_work_tally(limit, length):
+    """The bound's tally follows the data: with every limit above any
+    code the length find stops at bl = 1 (one limit row read, one
+    compare); with every limit 0 it reads all 14 rows and counts a 4-deep
+    tree. A step adds the refill, the meta load and the consume."""
+    L, T = 16, 40
+    meta, _, stream = micro_gather.symbol_inputs(L, 3)
+    lim = torch.full((16, L), limit, dtype=torch.int32)
+    work = Work(L)
+    micro_gather.symbol_step_plain(meta, lim, stream, T, work)
+    assert work.chain() == T * (3 + min(length, 4))
+    assert int(work.masks["limit"].sum()) == min(length, 14) * L
+    assert int(work.masks["stream"].sum()) == 32 * L
+    assert 0 < int(work.masks["meta"].sum()) <= T * L
+
+
+_LISTING = """
+        Function : _ZN12_GLOBAL__N_117p5_masksum_kernelEPKiS1_Piii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0020*/                   ISETP.NE.AND P0, PT, R2, RZ, PT ;
+        /*0030*/               @P0 BRA 0x10 ;
+        /*0040*/                   STG.E desc[UR4][R4.64], R2 ;
+        /*0050*/                   NOP;
+        Function : _ZN12_GLOBAL__N_113p2_skel_kernelEPKjlPKiiiiiPiS4_
+        /*0000*/                   SEL R3, R2, RZ, P0 ;
+        /*0010*/                   BRA 0x20 ;
+        Function : _ZN12_GLOBAL__N_115p1_sweep_kernelILb1EEEviiPiS1_
+        /*0000*/                   LDS R3, [R2] ;
+        /*0010*/                   LD.E R4, [R6.64] ;
+"""
+
+
+def test_sass_summary_reads_a_listing():
+    got = sass.summarise(_LISTING)
+    m = got["p5_masksum_kernel"]
+    assert (m["insns"], m["LDG"], m["STG"], m["ISETP"], m["loops"]) == \
+        (5, 1, 1, 1, 1)
+    s = got["p2_skel_kernel"]
+    assert (s["insns"], s["SEL"], s["loops"]) == (2, 1, 0)
+    p = got["p1_sweep_kernel<true>"]
+    assert (p["LDS"], p["LD"], p["LDG"]) == (1, 1, 0)
