@@ -2,10 +2,14 @@
 """Drive the PyTorch + CUDA port's main path once on one GPU, and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-k34   # K3 and K4 alone (time_k34)
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
 1. require a CUDA device; print the card's name and power limit;
-2. build the kernels (nvcc, sm_90a) and print the build time;
+2. build the kernels (nvcc, sm_90a); print the build time, each kernel's
+   ptxas report (stack frame, spills, registers, shared memory) and the
+   SASS summary of K3 and K4 (loads and stores by memory space,
+   ``tools/sass.py``);
 3. K1 against its plain version on the edge-case batch
    (libmspack_tpu_torch/edge_cases.py): counts, tokens and resolved bytes
    must be equal;
@@ -24,7 +28,9 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    records equal, bytes equal to the reference codec's; and K3 in
    segments through its state record against one launch;
 8. K3 against its plain version on one whole bench LZX folder (the CAB
-   driver's launch), and K3 alone on all four folders in one launch;
+   driver's launch), with its ns per token (kernel time over the tokens
+   of the lane) and per literal or match, and K3 alone on all four
+   folders in one launch;
 9. the bench's 96 MiB LZX cabinet (four 24 MiB folders, window 2^16)
    through create_cab_decompressor(engine="cuda"): bytes equal, K3
    launched, no decline; engine="native" beside it;
@@ -39,7 +45,8 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     records equal, bytes equal to the reference codec's; K4 in segments
     through its state record against one launch;
 13. K4 against its plain version on one whole 6 MiB bench Quantum folder
-    (the CAB driver's launch), and K4 alone on all four in one launch;
+    (the CAB driver's launch), with its ns per token and per adaptive-model
+    symbol, and K4 alone on all four in one launch;
 14. the bench's 24 MiB Quantum cabinet (four 6 MiB folders, window 2^16)
     through create_cab_decompressor(engine="cuda"): bytes equal, K4
     launched, no decline; engine="native" beside it; then the four
@@ -105,6 +112,32 @@ def build_cab(corpus: bytes, compression: str) -> bytes:
     return cab_c.write_cab(folders=folders)
 
 
+def bench_folders(corpus, compression):
+    """``build_cab(corpus, compression)`` and its folders as the CAB driver
+    hands them to its engine, as K3 (``"lzx"``) or K4 (``"quantum"``)
+    cases: each folder's stream (a Quantum block followed by the 0xFF
+    trailer the reader injects), its output size and window, and for
+    Quantum its bytes."""
+    from libmspack_tpu_torch import create_cab_decompressor
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch import qtm_edge_cases as qe
+
+    blob = build_cab(corpus, compression)
+    probe = create_cab_decompressor(engine="native")
+    folders, off = [], 0
+    for fol in probe.open(blob).folders:
+        blocks, fsizes = probe.collect_raw_blocks(fol)
+        n, wb = sum(fsizes), (fol.comp_type >> 8) & 0x1F
+        if compression == "lzx":
+            folders.append(le.LzxCase("folder", b"".join(blocks), n, wb))
+        else:
+            folders.append(qe.QtmCase(
+                "folder", b"".join(b + b"\xff" for b in blocks), n, wb,
+                corpus[off:off + n]))
+        off += n
+    return blob, folders
+
+
 def bound(nbytes, chain):
     """(bound_ms, bound_by): the larger of ``nbytes`` over the memory rate
     and ``chain`` dependent steps at the SM clock."""
@@ -131,6 +164,15 @@ def trace_bytes(lens, cnt, state_bytes=0):
     cnt = np.asarray(cnt)
     return int(np.asarray(lens).sum()) + 8 * int(cnt[2].sum()) \
         + cnt.size * 4 + cnt.shape[1] * state_bytes
+
+
+def trace_mix(tok):
+    """(literal bytes, match lengths) of one lane's K3/K4 tokens."""
+    import numpy as np
+
+    tok = np.asarray(tok)
+    lits = tok[(tok & 0x20000000) != 0] & 0xFF
+    return int(lits.sum()), tok[(tok & 0x40000000) != 0] & 0xFFFFFF
 
 
 def card_line() -> str:
@@ -249,12 +291,18 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     host = threading.Thread(target=native.lib)
     host.start()
     if device.type == "cuda":
+        from libmspack_tpu_torch.tools import sass
+
         kernels.lib()
         print(f"build: {time.perf_counter() - t0:.3f} s "
               f"({kernels.build_info['path']})")
-        for line in kernels.build_info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip())
+        for name, line in sorted(kernels.ptxas_report().items()):
+            print(f"ptxas {name}: {line}")
+        found = sass.summarise(sass.listing())
+        for name in ("k3_lzx_kernel", "k4_qtm_kernel"):
+            c = found[name]
+            print(f"sass {name}: {c['insns']} insns, {c['loops']} loops; "
+                  + " ".join(f"{o} {c[o]}" for o in sass.OPS if c[o]))
     host.join()
     native.lib()   # raises if the host engine did not build
     clock.lap("build")
@@ -553,16 +601,9 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock):
     # 8. the CAB driver's shape: one whole bench folder per launch
     t0 = time.perf_counter()
     corpus = build_corpus(total_mb * MB)
-    blob = build_cab(corpus, "lzx")
+    blob, folders = bench_folders(corpus, "lzx")
     print(f"LZX cabinet: {len(corpus)} bytes in {len(blob)} bytes, built "
           f"in {time.perf_counter() - t0:.2f} s")
-    probe = create_cab_decompressor(engine="native")
-    pcab = probe.open(blob)
-    folders = []
-    for fol in pcab.folders:
-        blocks, fsizes = probe.collect_raw_blocks(fol)
-        folders.append(le.LzxCase("folder", b"".join(blocks), sum(fsizes),
-                                  (fol.comp_type >> 8) & 0x1F))
     (tok, litw, cnt, _), e, k3_ms, k3_plain_ms = k3_compare(folders[:1],
                                                             device)
     e3 = max(e3, e)
@@ -573,9 +614,13 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock):
                            cl.STATE_BYTES)
     k3_chain = int(cnt[2].max())
     print(f"K3 one whole {folders[0].out_len}-byte folder "
-          f"({len(folders[0].stream)} bytes in): kernel {k3_ms:.3f} ms, "
+          f"({len(folders[0].stream)} bytes in, {k3_chain} tokens): kernel "
+          f"{k3_ms:.3f} ms, {k3_ms * 1e6 / k3_chain:.1f} ns per token, "
           f"plain {k3_plain_ms:.1f} ms, equal; bound "
           f"{bound(k3_bytes, k3_chain)}")
+    lit, mlen = trace_mix(tok[0, :k3_chain].numpy())
+    print(f"K3 folder: {lit} literals and {len(mlen)} matches, "
+          f"{k3_ms * 1e6 / (lit + len(mlen)):.1f} ns per literal or match")
     del tok, litw, cnt
     args = [t.to(device) for t in le.inputs(folders)]
     (tok, litw, cnt), ms = timed(lambda: cl.lzx_phase_a(
@@ -799,22 +844,9 @@ def qtm_phases(device, total_mb, edge_big, reps, clock):
     # 13. the CAB driver's shape: one whole bench folder per launch
     t0 = time.perf_counter()
     corpus = build_corpus(total_mb * MB)
-    blob = build_cab(corpus, "quantum")
+    blob, folders = bench_folders(corpus, "quantum")
     print(f"Quantum cabinet: {len(corpus)} bytes in {len(blob)} bytes, "
           f"built in {time.perf_counter() - t0:.2f} s")
-    probe = create_cab_decompressor(engine="native")
-    pcab = probe.open(blob)
-    folders = []
-    for fol in pcab.folders:
-        blocks, fsizes = probe.collect_raw_blocks(fol)
-        folders.append(qe.QtmCase("folder",
-                                  b"".join(b + b"\xff" for b in blocks),
-                                  sum(fsizes), (fol.comp_type >> 8) & 0x1F,
-                                  corpus[:0]))
-    off = 0
-    for f in folders:
-        f.raw = corpus[off:off + f.out_len]
-        off += f.out_len
     (tok, litw, cnt, _), e, k4_ms, k4_plain_ms = k4_compare(folders[:1],
                                                             device)
     e4 = max(e4, e)
@@ -825,8 +857,15 @@ def qtm_phases(device, total_mb, edge_big, reps, clock):
     k4_chain = int(cnt[2].max())
     print(f"K4 one whole {folders[0].out_len}-byte folder "
           f"({len(folders[0].stream)} bytes in, {k4_chain} tokens): kernel "
-          f"{k4_ms:.3f} ms, plain {k4_plain_ms:.1f} ms, equal; bound "
+          f"{k4_ms:.3f} ms, {k4_ms * 1e6 / k4_chain:.1f} ns per token, "
+          f"plain {k4_plain_ms:.1f} ms, equal; bound "
           f"{bound(k4_bytes, k4_chain)}")
+    # a literal is two model symbols (selector, literal); a match of 3 or
+    # 4 bytes two (selector, position slot), a longer one three (+ length)
+    lit, mlen = trace_mix(tok[0, :k4_chain].numpy())
+    nsym = 2 * lit + 2 * len(mlen) + int((mlen > 4).sum())
+    print(f"K4 folder: {lit} literals and {len(mlen)} matches, {nsym} "
+          f"model symbols, {k4_ms * 1e6 / nsym:.1f} ns per symbol")
     del tok, litw, cnt
     args = [t.to(device) for t in qe.inputs(folders)]
     (tok, litw, cnt), ms = timed(lambda: cq.qtm_phase_a(
@@ -945,14 +984,68 @@ def probe_phases(device, clock):
     return entries
 
 
-def main() -> int:
+def time_k34(reps=4):
+    """``python3 chip_smoke.py --time-k34``: K3 on one whole bench LZX
+    folder and K4 on one whole bench Quantum folder (the launches of phases
+    8 and 13), ``reps`` times each, with the kernels built from this
+    checkout, beside a hash of each trace. To compare two versions of a
+    kernel on one card, unpack each checkout into a directory of its own
+    and run this in each, in turns (A, B, B, A)."""
+    import hashlib
+
     import torch
 
+    from libmspack_tpu_torch import kernels
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch import qtm_edge_cases as qe
+    from libmspack_tpu_torch.ops import cuda_lzx as cl
+    from libmspack_tpu_torch.ops import cuda_qtm as cq
+
+    device = torch.device("cuda")
+    kernels.lib()
+    report = kernels.ptxas_report()
+    for name, comp in (("k3_lzx", "lzx"), ("k4_qtm", "quantum")):
+        _, folders = bench_folders(build_corpus(FOLDER_MB[comp] * MB), comp)
+        f = folders[0]
+        if comp == "lzx":
+            args = [t.to(device) for t in le.inputs([f])]
+            launch = lambda: cl.lzx_phase_a(*args, f.window_bits,
+                                            tcap=f.out_len)
+        else:
+            args = [t.to(device) for t in qe.inputs([f])]
+            launch = lambda: cq.qtm_phase_a(*args, f.window_bits,
+                                            tcap=f.out_len)
+        times = []
+        for _ in range(reps):
+            (tok, litw, cnt), ms = timed(launch, device)
+            times.append(ms)
+        cnt = cnt.cpu()
+        n = int(cnt[2, 0])
+        if int(cnt[0, 0]) or int(cnt[1, 0]) != f.out_len:
+            raise AssertionError(f"{name}: counts {cnt[:3, 0].tolist()}")
+        h = hashlib.sha256(tok[0, :n].cpu().numpy().tobytes()
+                           + litw[0, :n].cpu().numpy().tobytes())
+        print(f"{name}: {f.out_len}-byte folder, {n} tokens, trace "
+              f"{h.hexdigest()[:16]}; ms " + ", ".join(
+                  f"{t:.3f}" for t in times)
+              + f"; ptxas {report.get(name + '_kernel')}", flush=True)
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--time-k34"]):
+        print("usage: chip_smoke.py [--time-k34]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     print(card_line())
+    if argv:
+        time_k34()
+        return 0
     result = run("cuda")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -6,20 +6,31 @@
 //   0x40000000 | len      a match of len bytes (2..33024); litw = the
 //                         linear distance back in the output
 //
-// The same functions run in the Hopper kernel (lzx.cu, one thread per
-// stream) and in a host twin that g++ builds from this header alone (define
-// LZX_CORE_HOST_TWIN), so the tests check the kernel's logic on a CPU.
+// The same functions run in the Hopper kernel (lzx.cu, one warp per stream,
+// the State record and the lookup tables in shared memory) and in a host
+// twin that g++ builds from this header and stream_core.cuh (define
+// LZX_CORE_HOST_TWIN), so the tests check the kernel's logic, its warp
+// steps included, on a CPU.
 //
 // The decoder is sequential and follows the reference codec
-// (libmspack_tpu/codecs/lzx.py, lzxd.c) step for step: an MSB-first bit
-// reader over 16-bit little-endian units, reading zeros past the stream's
-// end; canonical Huffman decode from per-length counts plus a symbol list
-// sorted by (length, symbol); code lengths delta-coded through the pretree;
-// R0-R2; aligned offsets; uncompressed blocks; the 16-bit realign at every
-// 32 KiB of output; the DELTA long-match escape and 16-bit chunk field; the
-// intel E8 header. A match whose ring-window source was overwritten in this
-// lap (offset > window) splits into two linear-distance tokens, as
+// (libmspack_tpu/codecs/lzx.py, lzxd.c): an MSB-first bit reader over
+// 16-bit little-endian units, reading zeros past the stream's end;
+// canonical Huffman codes from per-length counts plus a symbol list sorted
+// by (length, symbol); code lengths delta-coded through the pretree; R0-R2;
+// aligned offsets; uncompressed blocks; the 16-bit realign at every 32 KiB
+// of output; the DELTA long-match escape and 16-bit chunk field; the intel
+// E8 header. A match whose ring-window source was overwritten in this lap
+// (offset > window) splits into two linear-distance tokens, as
 // codecs/lzx.py:337-357 does.
+//
+// Each tree also gets a first-level lookup table (Tables): the symbol and
+// length of every code of at most its table's bits, packed in 16 bits, so
+// a symbol is one table read; a longer code goes on through the canonical
+// walk from the table's bits + 1. The warp fills a table lane by lane from
+// the tree's canonical code once a block header has built it (and on
+// resuming a record inside a block). Runs of literals decode in a loop
+// straight off the main table. The hot scalars (bit buffer and cursor,
+// outpos, the block's state, R0-R2) stay in registers (Regs).
 //
 // Its whole state lives in one State record per stream, which the caller
 // allocates: the decoder works on it in place, so passing the record of a
@@ -34,14 +45,9 @@
 // means the token cap was reached.
 #pragma once
 
-#include <stdint.h>
+#include "stream_core.cuh"
 
-#ifndef __CUDACC__
-#define __host__
-#define __device__
-#endif
-
-#define LZ_FN static __host__ __device__ inline
+#define LZ_FN SC_FN
 
 namespace lz {
 
@@ -53,6 +59,13 @@ constexpr int MAIN_MAX = 256 + 290 * 8;  // main tree symbols at window 2^25
 constexpr int NLEN = 250;                // length tree (249 coded + 1)
 constexpr int NALN = 8;
 constexpr int SAFETY = 64;               // code-length runs may overshoot
+
+// first-level table bits of the main, length, aligned and pretree tables
+constexpr int MAIN_TB = 12, LEN_TB = 10, ALN_TB = 7, PRE_TB = 8;
+// A table entry: symbol | (length - 1) << 12, or LONG for a prefix of a
+// code longer than the table's bits (no code in a table has length 16).
+// A literal's entry, and only a literal's, has bits 8-11 clear.
+constexpr uint16_t LONG = 0xFFFF;
 
 enum { ERR_OK = 0, ERR_DATA = 1, ERR_TCAP = 2 };
 
@@ -80,12 +93,32 @@ struct State {
   uint8_t aln_lens[NALN];
 };
 
-struct Bits {
-  const uint8_t* src;
-  int64_t n;
-  int64_t upos;   // byte position of the next 16-bit unit to load
-  uint64_t buf;   // the next bits, MSB first
-  int nbits;
+// Where the canonical walk resumes past a table's bits: the first code and
+// the symbol index of the next length.
+struct Walk {
+  int32_t first, index;
+};
+
+// The kernel's shared memory beside the State record: the lookup tables,
+// the pretree's canonical code and the scratch of build.
+struct Tables {
+  uint16_t main[1 << MAIN_TB];
+  uint16_t len[1 << LEN_TB];
+  uint16_t aln[1 << ALN_TB];
+  uint16_t pre[1 << PRE_TB];
+  Walk main_walk, len_walk, aln_walk, pre_walk;
+  uint16_t pcount[17], psym[NPRE], offs[17];
+  uint8_t plens[NPRE];
+};
+
+using Bits = BitReader<true>;
+
+// The scalars of a State, in registers while a launch decodes.
+struct Regs {
+  int64_t outpos;
+  uint32_t r0, r1, r2;
+  int32_t block_type, block_remaining, block_length, header_read;
+  int32_t intel_started, intel_filesize, length_empty;
 };
 
 struct Trace {
@@ -106,53 +139,12 @@ struct Result {
   int32_t intel_filesize;
 };
 
-LZ_FN uint32_t byte_at(const Bits& b, int64_t p) {
-  return p < b.n ? b.src[p] : 0u;
-}
-
-LZ_FN void fill(Bits& b) {
-  while (b.nbits <= 48) {
-    uint64_t u = byte_at(b, b.upos) | (byte_at(b, b.upos + 1) << 8);
-    b.upos += 2;
-    b.buf |= u << (48 - b.nbits);
-    b.nbits += 16;
-  }
-}
-
-LZ_FN int64_t tell(const Bits& b) { return b.upos * 8 - b.nbits; }
-
-LZ_FN void drop(Bits& b, int k) {
-  b.buf <<= k;
-  b.nbits -= k;
-}
-
-LZ_FN uint32_t peek(Bits& b, int k) {
-  if (b.nbits < k) fill(b);
-  return (uint32_t)(b.buf >> (64 - k));
-}
-
-LZ_FN uint32_t take(Bits& b, int k) {
-  if (k == 0) return 0;
-  uint32_t v = peek(b, k);
-  drop(b, k);
-  return v;
-}
-
-// Position the reader at bit p (units stay aligned to even bytes).
-LZ_FN void seek(Bits& b, int64_t p) {
-  b.upos = (p >> 4) << 1;
-  b.buf = 0;
-  b.nbits = 0;
-  if (p & 15) {
-    fill(b);
-    drop(b, (int)(p & 15));
-  }
-}
-
 LZ_FN bool emit(Trace& t, int32_t tok, uint32_t litw) {
   if (t.n >= t.cap) return false;
-  t.tok[t.n] = tok;
-  t.litw[t.n] = (int32_t)litw;
+  if (warp::leader()) {
+    t.tok[t.n] = tok;
+    t.litw[t.n] = (int32_t)litw;
+  }
   t.n++;
   return true;
 }
@@ -172,38 +164,83 @@ LZ_FN bool literal(Trace& t, uint32_t v) {
 }
 
 // Canonical code from code lengths (lengths above 16 are no code, as in
-// the reference's table build). Returns the unused code space out of 2^16:
-// 0 for a complete code, -1 when over-subscribed.
-LZ_FN int build(uint16_t* count, uint16_t* sym, const uint8_t* lens, int n) {
-  uint16_t offs[17];
-  for (int l = 0; l < 17; l++) count[l] = 0;
-  for (int s = 0; s < n; s++) {
-    if (lens[s] <= 16) count[lens[s]]++;
+// the reference's table build), lane 0 writing count and sym. Returns the
+// unused code space out of 2^16: 0 for a complete code, -1 when
+// over-subscribed (sym then untouched).
+LZ_FN int build(uint16_t* count, uint16_t* sym, const uint8_t* lens, int n,
+                uint16_t* offs) {
+  warp::sync();
+  if (warp::leader()) {
+    for (int l = 0; l < 17; l++) count[l] = 0;
+    for (int s = 0; s < n; s++) {
+      if (lens[s] <= 16) count[lens[s]]++;
+    }
+    count[0] = 0;
   }
-  count[0] = 0;
+  warp::sync();
   int left = 1;
   for (int l = 1; l < 17; l++) {
     left = (left << 1) - count[l];
     if (left < 0) return -1;
   }
-  offs[1] = 0;
-  for (int l = 1; l < 16; l++) offs[l + 1] = offs[l] + count[l];
-  for (int s = 0; s < n; s++) {
-    int l = lens[s];
-    if (l >= 1 && l <= 16) sym[offs[l]++] = (uint16_t)s;
+  if (warp::leader()) {
+    offs[1] = 0;
+    for (int l = 1; l < 16; l++) offs[l + 1] = offs[l] + count[l];
+    for (int s = 0; s < n; s++) {
+      int l = lens[s];
+      if (l >= 1 && l <= 16) sym[offs[l]++] = (uint16_t)s;
+    }
   }
+  warp::sync();
   return left;
 }
 
-// One symbol, MSB first, or -1 when no code of <= 16 bits matches.
-LZ_FN int decode(Bits& b, const uint16_t* count, const uint16_t* sym) {
-  uint32_t bits = peek(b, 16);
-  int code = 0, first = 0, index = 0;
-  for (int len = 1; len <= 16; len++) {
+// The first-level table of a code that is not over-subscribed. Codes of
+// length l <= tb are consecutive from the canonical first code f_l, so
+// they fill the tb-bit prefixes [f_l << (tb - l), (f_l + count) << (tb -
+// l)), one range after another; the prefixes past the last range belong to
+// longer codes (or to none) and get LONG. Lanes split each range.
+LZ_FN void fill_table(uint16_t* tab, int tb, Walk& w, const uint16_t* count,
+                      const uint16_t* sym) {
+  int first = 0, index = 0, start = 0;
+  for (int l = 1; l <= tb; l++) {
+    int c = count[l], sh = tb - l, end = (first + c) << sh;
+    warp::each([&](int lane) {
+      for (int e = start + lane; e < end; e += 32) {
+        tab[e] = (uint16_t)(sym[index + (e >> sh) - first] | (l - 1) << 12);
+      }
+    });
+    index += c;
+    first = (first + c) << 1;
+    start = end;
+  }
+  warp::each([&](int lane) {
+    for (int e = start + lane; e < (1 << tb); e += 32) tab[e] = LONG;
+  });
+  if (warp::leader()) {
+    w.first = first;
+    w.index = index;
+  }
+  warp::sync();
+}
+
+// One symbol, MSB first, or -1 when no code of <= 16 bits matches: the
+// table entry of the next tb bits, else the reference's canonical walk
+// (lzxd.c's table fallback) from length tb + 1.
+LZ_FN int decode(Bits& b, const uint16_t* tab, int tb, const Walk& w,
+                 const uint16_t* count, const uint16_t* sym) {
+  uint32_t bits = b.peek(16);
+  uint32_t e = tab[bits >> (16 - tb)];
+  if (e != LONG) {
+    b.drop((int)(e >> 12) + 1);
+    return (int)(e & 0xFFF);
+  }
+  int code = (int)(bits >> (16 - tb)) << 1, first = w.first, index = w.index;
+  for (int len = tb + 1; len <= 16; len++) {
     code |= (int)((bits >> (16 - len)) & 1);
     int c = count[len];
     if (code - c < first) {
-      drop(b, len);
+      b.drop(len);
       return sym[index + (code - first)];
     }
     index += c;
@@ -217,82 +254,97 @@ LZ_FN int decode(Bits& b, const uint16_t* count, const uint16_t* sym) {
 // through a fresh pretree (lzxd.c:138-183, codecs/lzx.py:162-198). A run
 // may overshoot last by up to 51 entries, into the next range or the
 // SAFETY tail, as the reference's does.
-LZ_FN int read_lens(Bits& b, uint8_t* lens, int first, int last) {
-  uint8_t plens[NPRE];
-  uint16_t pcount[17], psym[NPRE];
-  for (int i = 0; i < NPRE; i++) plens[i] = (uint8_t)take(b, 4);
-  if (build(pcount, psym, plens, NPRE) != 0) return ERR_DATA;
+LZ_FN int read_lens(Bits& b, Tables& T, uint8_t* lens, int first,
+                    int last) {
+  for (int i = 0; i < NPRE; i++) {
+    uint32_t v = b.take(4);
+    if (warp::leader()) T.plens[i] = (uint8_t)v;
+  }
+  if (build(T.pcount, T.psym, T.plens, NPRE, T.offs) != 0) return ERR_DATA;
+  fill_table(T.pre, PRE_TB, T.pre_walk, T.pcount, T.psym);
   int pos = first;
   while (pos < last) {
-    int sym = decode(b, pcount, psym);
+    int sym = decode(b, T.pre, PRE_TB, T.pre_walk, T.pcount, T.psym);
     if (sym < 0) return ERR_DATA;
     int run = 1, value = 0;
     if (sym == 17) {
-      run = (int)take(b, 4) + 4;
+      run = (int)b.take(4) + 4;
     } else if (sym == 18) {
-      run = (int)take(b, 5) + 20;
+      run = (int)b.take(5) + 20;
     } else {
       if (sym == 19) {
-        run = (int)take(b, 1) + 4;
-        sym = decode(b, pcount, psym);
+        run = (int)b.take(1) + 4;
+        sym = decode(b, T.pre, PRE_TB, T.pre_walk, T.pcount, T.psym);
         if (sym < 0) return ERR_DATA;
       }
       value = lens[pos] - sym;
       if (value < 0) value += 17;
       value &= 0xFF;
     }
-    for (int k = 0; k < run; k++) lens[pos + k] = (uint8_t)value;
+    warp::sync();
+    warp::each([&](int lane) {
+      for (int k = lane; k < run; k += 32) lens[pos + k] = (uint8_t)value;
+    });
+    warp::sync();
     pos += run;
   }
   return ERR_OK;
 }
 
-LZ_FN int begin_block(Bits& b, State& s, int num_offsets) {
-  if (s.block_type == 3 && (s.block_length & 1)) {
-    seek(b, tell(b) + 8);  // the pad byte after an odd uncompressed block
+LZ_FN uint32_t le32_at(const Bits& b, int64_t q) {
+  return b.byte_at(q) | (b.byte_at(q + 1) << 8) | (b.byte_at(q + 2) << 16) |
+         (b.byte_at(q + 3) << 24);
+}
+
+LZ_FN int begin_block(Bits& b, State& s, Regs& r, Tables& T,
+                      int num_offsets) {
+  if (r.block_type == 3 && (r.block_length & 1)) {
+    b.seek(b.tell() + 8);  // the pad byte after an odd uncompressed block
   }
-  s.block_type = (int32_t)take(b, 3);
-  uint32_t hi = take(b, 16);
-  uint32_t lo = take(b, 8);
-  s.block_remaining = s.block_length = (int32_t)((hi << 8) | lo);
-  if (s.block_type == 3) {
-    s.intel_started = 1;
+  r.block_type = (int32_t)b.take(3);
+  uint32_t hi = b.take(16);
+  uint32_t lo = b.take(8);
+  r.block_remaining = r.block_length = (int32_t)((hi << 8) | lo);
+  if (r.block_type == 3) {
+    r.intel_started = 1;
     // drop the reference's buffered bits: 1-16, to the next 16-bit unit
-    int64_t p = ((tell(b) >> 4) + 1) << 4;
-    int64_t q = p >> 3;
-    uint32_t r[3];
-    for (int k = 0; k < 3; k++) {
-      r[k] = byte_at(b, q) | (byte_at(b, q + 1) << 8) |
-             (byte_at(b, q + 2) << 16) | (byte_at(b, q + 3) << 24);
-      q += 4;
-    }
-    s.r0 = r[0];
-    s.r1 = r[1];
-    s.r2 = r[2];
-    seek(b, q * 8);
+    int64_t q = (((b.tell() >> 4) + 1) << 4) >> 3;
+    r.r0 = le32_at(b, q);
+    r.r1 = le32_at(b, q + 4);
+    r.r2 = le32_at(b, q + 8);
+    b.seek((q + 12) * 8);
     return ERR_OK;
   }
-  if (s.block_type != 1 && s.block_type != 2) return ERR_DATA;
-  if (s.block_type == 2) {
-    for (int i = 0; i < NALN; i++) s.aln_lens[i] = (uint8_t)take(b, 3);
-    if (build(s.aln_count, s.aln_sym, s.aln_lens, NALN) != 0) return ERR_DATA;
+  if (r.block_type != 1 && r.block_type != 2) return ERR_DATA;
+  if (r.block_type == 2) {
+    for (int i = 0; i < NALN; i++) {
+      uint32_t v = b.take(3);
+      if (warp::leader()) s.aln_lens[i] = (uint8_t)v;
+    }
+    if (build(s.aln_count, s.aln_sym, s.aln_lens, NALN, T.offs) != 0) {
+      return ERR_DATA;
+    }
+    fill_table(T.aln, ALN_TB, T.aln_walk, s.aln_count, s.aln_sym);
   }
-  int err = read_lens(b, s.main_lens, 0, 256);
-  if (err == ERR_OK) err = read_lens(b, s.main_lens, 256, 256 + num_offsets);
+  int err = read_lens(b, T, s.main_lens, 0, 256);
+  if (err == ERR_OK) err = read_lens(b, T, s.main_lens, 256, 256 + num_offsets);
   if (err != ERR_OK) return err;
-  if (build(s.main_count, s.main_sym, s.main_lens, MAIN_MAX) != 0) {
+  if (build(s.main_count, s.main_sym, s.main_lens, MAIN_MAX, T.offs) != 0) {
     return ERR_DATA;
   }
-  if (s.main_lens[0xE8]) s.intel_started = 1;
-  err = read_lens(b, s.len_lens, 0, NLEN - 1);
+  fill_table(T.main, MAIN_TB, T.main_walk, s.main_count, s.main_sym);
+  if (s.main_lens[0xE8]) r.intel_started = 1;
+  err = read_lens(b, T, s.len_lens, 0, NLEN - 1);
   if (err != ERR_OK) return err;
   // an all-zero length tree is allowed until a LENGTH symbol needs it
-  s.length_empty = 1;
-  for (int i = 0; i < NLEN; i++) {
-    if (s.len_lens[i]) s.length_empty = 0;
-  }
-  int left = build(s.len_count, s.len_sym, s.len_lens, NLEN);
-  return left == 0 || s.length_empty ? ERR_OK : ERR_DATA;
+  r.length_empty = warp::ballot([&](int lane) {
+    bool any = false;
+    for (int i = lane; i < NLEN; i += 32) any = any || s.len_lens[i];
+    return any;
+  }) == 0;
+  int left = build(s.len_count, s.len_sym, s.len_lens, NLEN, T.offs);
+  if (left >= 0) fill_table(T.len, LEN_TB, T.len_walk, s.len_count, s.len_sym);
+  return left == 0 || r.length_empty ? ERR_OK : ERR_DATA;
 }
 
 LZ_FN int64_t position_base(int slot) {
@@ -301,15 +353,22 @@ LZ_FN int64_t position_base(int slot) {
   return 524288 + (int64_t)(slot - 38) * 131072;
 }
 
-// A match: main element sym >= 256 decoded at s.outpos in the frame that
+// Position slots at window 2^wbits (lzxd.c:position_slots): 30, 32, 34,
+// 36, 38, 42, 50, 66, 98, 162, 290 for wbits 15..25.
+LZ_FN int position_slots(int wbits) {
+  return wbits < 19 ? 30 + 2 * (wbits - 15) : 34 + (1 << (wbits - 17));
+}
+
+// A match: main element sym >= 256 decoded at r.outpos in the frame that
 // starts at fbase and ends at fend.
-LZ_FN int match(Bits& b, State& s, Trace& t, int sym, int64_t fbase,
-                int64_t fend, int wbits, int delta, int32_t hist) {
+LZ_FN int match(Bits& b, State& s, Regs& r, Tables& T, Trace& t, int sym,
+                int64_t fbase, int64_t fend, int wbits, int delta,
+                int32_t hist) {
   int elem = sym - 256;
   int64_t len = elem & 7;
   if (len == 7) {
-    if (s.length_empty) return ERR_DATA;
-    int ls = decode(b, s.len_count, s.len_sym);
+    if (r.length_empty) return ERR_DATA;
+    int ls = decode(b, T.len, LEN_TB, T.len_walk, s.len_count, s.len_sym);
     if (ls < 0) return ERR_DATA;
     len += ls;
   }
@@ -317,51 +376,51 @@ LZ_FN int match(Bits& b, State& s, Trace& t, int sym, int64_t fbase,
   int slot = elem >> 3;
   uint32_t off;
   if (slot == 0) {
-    off = s.r0;
+    off = r.r0;
   } else if (slot == 1) {
-    off = s.r1;
-    s.r1 = s.r0;
-    s.r0 = off;
+    off = r.r1;
+    r.r1 = r.r0;
+    r.r0 = off;
   } else if (slot == 2) {
-    off = s.r2;
-    s.r2 = s.r0;
-    s.r0 = off;
+    off = r.r2;
+    r.r2 = r.r0;
+    r.r0 = off;
   } else {
     int extra = slot >= 36 ? 17 : (slot >> 1) - 1;
     off = (uint32_t)(position_base(slot) - 2);
-    if (extra >= 3 && s.block_type == 2) {
-      if (extra > 3) off += take(b, extra - 3) << 3;
-      int a = decode(b, s.aln_count, s.aln_sym);
+    if (extra >= 3 && r.block_type == 2) {
+      if (extra > 3) off += b.take(extra - 3) << 3;
+      int a = decode(b, T.aln, ALN_TB, T.aln_walk, s.aln_count, s.aln_sym);
       if (a < 0) return ERR_DATA;
       off += (uint32_t)a;
     } else if (extra) {
-      off += take(b, extra);
+      off += b.take(extra);
     }
-    s.r2 = s.r1;
-    s.r1 = s.r0;
-    s.r0 = off;
+    r.r2 = r.r1;
+    r.r1 = r.r0;
+    r.r0 = off;
   }
   if (delta && len == 257) {  // long-match escape (lzxd.c:588-611)
-    uint32_t e = peek(b, 3);
+    uint32_t e = b.peek(3);
     if ((e >> 2) == 0) {
-      drop(b, 1);
-      len += take(b, 8);
+      b.drop(1);
+      len += b.take(8);
     } else if ((e >> 1) == 2) {
-      drop(b, 2);
-      len += take(b, 10) + 0x100;
+      b.drop(2);
+      len += b.take(10) + 0x100;
     } else if (e == 6) {
-      drop(b, 3);
-      len += take(b, 12) + 0x500;
+      b.drop(3);
+      len += b.take(12) + 0x500;
     } else {
-      drop(b, 3);
-      len += take(b, 15);
+      b.drop(3);
+      len += b.take(15);
     }
   }
   int64_t wsize = (int64_t)1 << wbits;
-  int64_t lap = s.outpos & (wsize - 1);
+  int64_t lap = r.outpos & (wsize - 1);
   int64_t o = off;
   if (lap + len > wsize) return ERR_DATA;           // over the window wrap
-  if (len > s.block_remaining || s.outpos + len > fend) return ERR_DATA;
+  if (len > r.block_remaining || r.outpos + len > fend) return ERR_DATA;
   int64_t first = len;
   if (o > lap) {
     if (o > fbase && o - lap > hist) return ERR_DATA;  // beyond the stream
@@ -379,69 +438,94 @@ LZ_FN int match(Bits& b, State& s, Trace& t, int sym, int64_t fbase,
   } else if (!emit(t, TOK_MATCH | (int32_t)len, off)) {
     return ERR_TCAP;
   }
-  s.outpos += len;
-  s.block_remaining -= (int32_t)len;
+  r.outpos += len;
+  r.block_remaining -= (int32_t)len;
   return ERR_OK;
 }
 
-// Decode frames until s.outpos reaches target (or an error).
-LZ_FN int run(Bits& b, State& s, Trace& t, int64_t target, int32_t hist,
-              int wbits, int delta) {
-  const uint16_t slots[11] = {30, 32, 34, 36, 38, 42, 50, 66, 98, 162, 290};
-  int num_offsets = slots[wbits - 15] << 3;
-  while (s.outpos < target) {
-    int64_t fbase = s.outpos;
+// Decode frames until r.outpos reaches target (or an error).
+LZ_FN int run(Bits& b, State& s, Regs& r, Tables& T, Trace& t,
+              int64_t target, int32_t hist, int wbits, int delta) {
+  int num_offsets = position_slots(wbits) << 3;
+  const warp::SharedTable main_tab(T.main);
+  while (r.outpos < target) {
+    int64_t fbase = r.outpos;
     int64_t fend = fbase + FRAME < target ? fbase + FRAME : target;
-    if (delta) take(b, 16);  // the chunk size field before each frame
-    if (!s.header_read) {
+    if (delta) b.take(16);  // the chunk size field before each frame
+    if (!r.header_read) {
       int32_t v = 0;
-      if (take(b, 1)) {
-        uint32_t hi = take(b, 16);
-        v = (int32_t)((hi << 16) | take(b, 16));
+      if (b.take(1)) {
+        uint32_t hi = b.take(16);
+        v = (int32_t)((hi << 16) | b.take(16));
       }
-      s.intel_filesize = v;
-      s.header_read = 1;
+      r.intel_filesize = v;
+      r.header_read = 1;
     }
-    while (s.outpos < fend) {
-      if (s.block_remaining == 0) {
-        int err = begin_block(b, s, num_offsets);
+    while (r.outpos < fend) {
+      if (r.block_remaining == 0) {
+        int err = begin_block(b, s, r, T, num_offsets);
         if (err != ERR_OK) return err;
         continue;
       }
-      if (s.block_type == 3) {  // raw bytes, from the byte cursor
-        int64_t k = fend - s.outpos;
-        if (s.block_remaining < k) k = s.block_remaining;
-        int64_t q = tell(b) >> 3;
+      if (r.block_type == 3) {  // raw bytes, from the byte cursor
+        int64_t k = fend - r.outpos;
+        if (r.block_remaining < k) k = r.block_remaining;
+        int64_t q = b.tell() >> 3;
         for (int64_t j = 0; j < k; j++) {
-          if (!literal(t, byte_at(b, q + j))) return ERR_TCAP;
+          if (!literal(t, b.byte_at(q + j))) return ERR_TCAP;
         }
-        seek(b, (q + k) * 8);
-        s.outpos += k;
-        s.block_remaining -= (int32_t)k;
+        b.seek((q + k) * 8);
+        r.outpos += k;
+        r.block_remaining -= (int32_t)k;
         continue;
       }
-      int sym = decode(b, s.main_count, s.main_sym);
+      // a run of literals straight from the main table, up to the first
+      // other entry or the block's or the frame's end
+      int32_t room = fend - r.outpos < r.block_remaining
+                         ? (int32_t)(fend - r.outpos) : r.block_remaining;
+      int32_t k = 0;
+      bool full = false;
+      for (; k < room; k++) {
+        uint32_t e = main_tab[b.peek(16) >> (16 - MAIN_TB)];
+        if (e & 0xF00) break;
+        b.drop((int)(e >> 12) + 1);
+        if (!literal(t, e & 0xFF)) {
+          full = true;
+          break;
+        }
+      }
+      r.outpos += k;
+      r.block_remaining -= k;
+      if (full) return ERR_TCAP;
+      if (k == room) continue;
+      int sym = decode(b, T.main, MAIN_TB, T.main_walk, s.main_count,
+                       s.main_sym);
       if (sym < 0) return ERR_DATA;
       if (sym < 256) {
         if (!literal(t, (uint32_t)sym)) return ERR_TCAP;
-        s.outpos++;
-        s.block_remaining--;
+        r.outpos++;
+        r.block_remaining--;
         continue;
       }
-      int err = match(b, s, t, sym, fbase, fend, wbits, delta, hist);
+      int err = match(b, s, r, T, t, sym, fbase, fend, wbits, delta, hist);
       if (err != ERR_OK) return err;
     }
     // realign to 16 bits; in an uncompressed block the reference holds no
     // buffered bits and reads on from its byte cursor
-    if (s.block_type != 3) seek(b, (tell(b) + 15) & ~(int64_t)15);
+    if (r.block_type != 3) b.seek((b.tell() + 15) & ~(int64_t)15);
   }
   return flush(t) ? ERR_OK : ERR_TCAP;
 }
 
+// A fresh record: zeros (lane by lane), then R0-R2 = 1 (lane 0).
 LZ_FN void init(State& s) {
-  uint8_t* p = reinterpret_cast<uint8_t*>(&s);
-  for (unsigned k = 0; k < sizeof(State); k++) p[k] = 0;
-  s.r0 = s.r1 = s.r2 = 1;
+  uint32_t* p = reinterpret_cast<uint32_t*>(&s);
+  warp::each([&](int l) {
+    for (unsigned k = l; k < sizeof(State) / 4; k += 32) p[k] = 0;
+  });
+  warp::sync();
+  if (warp::leader()) s.r0 = s.r1 = s.r2 = 1;
+  warp::sync();
 }
 
 // Decode one stream of n bytes up to output position target, resuming
@@ -449,17 +533,49 @@ LZ_FN void init(State& s) {
 // reference data). Writes at most cap tokens.
 LZ_FN Result decode_stream(const uint8_t* src, int64_t n, int64_t target,
                            int32_t hist, int wbits, int delta, State& s,
-                           int32_t* tok, int32_t* litw, int32_t cap) {
+                           Tables& T, int32_t* tok, int32_t* litw,
+                           int32_t cap) {
   Trace t = {tok, litw, cap, 0, 0, 0};
-  if (s.err == ERR_OK && s.outpos < target) {
+  Regs r = {s.outpos,        s.r0,           s.r1,
+            s.r2,            s.block_type,   s.block_remaining,
+            s.block_length,  s.header_read,  s.intel_started,
+            s.intel_filesize, s.length_empty};
+  int32_t err = s.err;
+  int64_t bitpos = s.bitpos;
+  if (err == ERR_OK && r.outpos < target) {
+    // resuming inside a coded block: its tables from the trees it built
+    if (r.block_remaining > 0 && (r.block_type == 1 || r.block_type == 2)) {
+      fill_table(T.main, MAIN_TB, T.main_walk, s.main_count, s.main_sym);
+      fill_table(T.len, LEN_TB, T.len_walk, s.len_count, s.len_sym);
+      if (r.block_type == 2) {
+        fill_table(T.aln, ALN_TB, T.aln_walk, s.aln_count, s.aln_sym);
+      }
+    }
     Bits b = {src, n, 0, 0, 0};
-    seek(b, s.bitpos);
-    s.err = run(b, s, t, target, hist, wbits, delta);
-    s.bitpos = tell(b);
+    b.seek(bitpos);
+    err = run(b, s, r, T, t, target, hist, wbits, delta);
+    bitpos = b.tell();
   }
-  Result r = {s.err, (int32_t)s.outpos, t.n, (int32_t)((s.bitpos + 7) >> 3),
-              s.intel_started, s.intel_filesize};
-  return r;
+  warp::sync();
+  if (warp::leader()) {
+    s.bitpos = bitpos;
+    s.outpos = r.outpos;
+    s.r0 = r.r0;
+    s.r1 = r.r1;
+    s.r2 = r.r2;
+    s.block_type = r.block_type;
+    s.block_remaining = r.block_remaining;
+    s.block_length = r.block_length;
+    s.header_read = r.header_read;
+    s.intel_started = r.intel_started;
+    s.intel_filesize = r.intel_filesize;
+    s.length_empty = r.length_empty;
+    s.err = err;
+  }
+  warp::sync();
+  Result res = {err, (int32_t)r.outpos, t.n, (int32_t)((bitpos + 7) >> 3),
+                r.intel_started, r.intel_filesize};
+  return res;
 }
 
 // Counts rows of lane i in an (8, L) grid: 0 err, 1 output position,
@@ -479,8 +595,9 @@ LZ_FN void write_counts(int32_t* cnt, int64_t L, int64_t i, Result r) {
 }  // namespace lz
 
 #ifdef LZX_CORE_HOST_TWIN
-// Host twin of the kernel's launch: the same per-lane call, one lane after
-// another. Built only by the tests.
+// Host twin of the kernel's launch: the same per-stream call, one stream
+// after another, with the warp's lanes evaluated in turn. Built only by
+// the tests.
 extern "C" int64_t lz_state_bytes() { return sizeof(lz::State); }
 
 extern "C" int lz_decode_host(const uint8_t* streams, int64_t stride,
@@ -489,14 +606,43 @@ extern "C" int lz_decode_host(const uint8_t* streams, int64_t stride,
                               int delta, int fresh, uint8_t* states,
                               int32_t* tok, int32_t* litw, int32_t cap,
                               int32_t* cnt) {
+  lz::Tables T;
   for (int i = 0; i < L; i++) {
     lz::State& s = reinterpret_cast<lz::State*>(states)[i];
     if (fresh) lz::init(s);
     lz::Result r = lz::decode_stream(
         streams + (int64_t)i * stride, lens[i], targets[i], hists[i], wbits,
-        delta, s, tok + (int64_t)i * cap, litw + (int64_t)i * cap, cap);
+        delta, s, T, tok + (int64_t)i * cap, litw + (int64_t)i * cap, cap);
     lz::write_counts(cnt, L, i, r);
   }
   return 0;
+}
+
+// The table decode alone, for the tests. lz_first_bits(tree): the table
+// bits of the main (0), length (1), aligned (2) and pretree (3) tables.
+// lz_table_decode: build the code of lens[0..n) and its table of tb bits,
+// then decode nsym symbols from src (n bytes) into out_sym, each with the
+// bit position after it in out_pos, stopping at a -1. Returns build's
+// unused code space (no decode when it is -1).
+extern "C" int lz_first_bits(int tree) {
+  const int tb[4] = {lz::MAIN_TB, lz::LEN_TB, lz::ALN_TB, lz::PRE_TB};
+  return tb[tree];
+}
+
+extern "C" int lz_table_decode(const uint8_t* lens, int n, int tb,
+                               const uint8_t* src, int64_t nbytes, int nsym,
+                               int32_t* out_sym, int64_t* out_pos) {
+  uint16_t count[17], sym[lz::MAIN_MAX], offs[17], tab[1 << lz::MAIN_TB];
+  lz::Walk w;
+  int left = lz::build(count, sym, lens, n, offs);
+  if (left < 0) return left;
+  lz::fill_table(tab, tb, w, count, sym);
+  lz::Bits b = {src, nbytes, 0, 0, 0};
+  for (int k = 0; k < nsym; k++) {
+    out_sym[k] = lz::decode(b, tab, tb, w, count, sym);
+    out_pos[k] = b.tell();
+    if (out_sym[k] < 0) break;
+  }
+  return left;
 }
 #endif

@@ -8,22 +8,32 @@
 //   0x40000000 | len      a match of len bytes (3..259); litw = the linear
 //                         distance back in the output
 //
-// The same functions run in the Hopper kernel (qtm.cu, one thread per
-// stream) and in a host twin that g++ builds from this header alone (define
-// QTM_CORE_HOST_TWIN), so the tests check the kernel's logic on a CPU.
+// The same functions run in the Hopper kernel (qtm.cu, one warp per stream,
+// the State record in shared memory) and in a host twin that g++ builds
+// from this header and stream_core.cuh (define QTM_CORE_HOST_TWIN), so the
+// tests check the kernel's logic, its warp steps included, on a CPU.
 //
 // The decoder is the reference codec's sequential reader
-// (libmspack_tpu/codecs/qtm.py, qtmd.c) step for step: an MSB-first bit
-// reader over 16-bit big-endian units, reading zeros past the stream's end;
-// the 16-bit H/L/C range coder with underflow renormalisation; nine
-// adaptive models (selector, four literal models, the match-3, match-4 and
-// variable-length position models, the length model), each symbol search
-// followed by the +8 update, the halving rescale once the total passes 3800
-// and, every fifth rescale, the reference's exchange sort run as it stands;
-// selectors 0-6 with the position and length extra-bit tables; at each
-// 32 KiB frame end a byte realign, a scan to the 0xFF trailer and a coder
-// re-init. Literals flush at four, at a frame end and at the target, and
-// before a match, as the TPU kernel flushes them, so the traces are equal.
+// (libmspack_tpu/codecs/qtm.py, qtmd.c): an MSB-first bit reader over 16-bit
+// big-endian units, reading zeros past the stream's end; the 16-bit H/L/C
+// range coder with underflow renormalisation; nine adaptive models
+// (selector, four literal models, the match-3, match-4 and variable-length
+// position models, the length model), each symbol search followed by the +8
+// update, the halving rescale once the total passes 3800 and, at the fourth
+// rescale and every 50th after it, the reference's exchange sort run as it
+// stands; selectors 0-6 with the position and length extra-bit tables; at
+// each 32 KiB frame end a byte realign, a scan to the 0xFF trailer and a
+// coder re-init. Literals flush at four, at a frame end and at the target,
+// and before a match, as the TPU kernel flushes them, so the traces are
+// equal.
+//
+// What the warp does in a symbol (stream_core.cuh): lane l holds rows l and
+// l + 32 of the model (row 64 is the sentinel), so the search is two
+// ballots, the new bounds each lane's own division and two shuffles, the
+// +8 update one store a lane, and the halving rescale a suffix max over
+// the warp; the exchange sort stays serial on lane 0. The
+// renormalisation's bit loop is one take of all its bits, in closed form.
+// The coder registers, the cursor, outpos and frame_todo stay in registers.
 //
 // Its whole state lives in one State record per stream, which the caller
 // allocates: the decoder works on it in place, so passing the record of a
@@ -42,14 +52,9 @@
 // (codecs/bitstream.py:44-55). err = 2 means the token cap was reached.
 #pragma once
 
-#include <stdint.h>
+#include "stream_core.cuh"
 
-#ifndef __CUDACC__
-#define __host__
-#define __device__
-#endif
-
-#define QT_FN static __host__ __device__ inline
+#define QT_FN SC_FN
 
 namespace qt {
 
@@ -83,12 +88,13 @@ struct State {
   Model m[NT];
 };
 
-struct Bits {
-  const uint8_t* src;
-  int64_t n;
-  int64_t upos;  // byte position of the next 16-bit unit to load
-  uint64_t buf;  // the next bits, MSB first
-  int nbits;
+using Bits = BitReader<false>;
+
+// The hot scalars of a State, in registers while a launch decodes.
+struct Regs {
+  int64_t outpos;
+  int32_t frame_todo;
+  uint32_t H, L, C;
 };
 
 struct Trace {
@@ -109,46 +115,12 @@ struct Result {
   int32_t wraps;
 };
 
-QT_FN uint32_t byte_at(const Bits& b, int64_t p) {
-  return p < b.n ? b.src[p] : 0u;
-}
-
-QT_FN void fill(Bits& b) {
-  while (b.nbits <= 48) {
-    uint64_t u = (byte_at(b, b.upos) << 8) | byte_at(b, b.upos + 1);
-    b.upos += 2;
-    b.buf |= u << (48 - b.nbits);
-    b.nbits += 16;
-  }
-}
-
-QT_FN int64_t tell(const Bits& b) { return b.upos * 8 - b.nbits; }
-
-QT_FN uint32_t take(Bits& b, int k) {
-  if (k == 0) return 0;
-  if (b.nbits < k) fill(b);
-  uint32_t v = (uint32_t)(b.buf >> (64 - k));
-  b.buf <<= k;
-  b.nbits -= k;
-  return v;
-}
-
-// Position the reader at bit p (units stay aligned to even bytes).
-QT_FN void seek(Bits& b, int64_t p) {
-  b.upos = (p >> 4) << 1;
-  b.buf = 0;
-  b.nbits = 0;
-  if (p & 15) {
-    fill(b);
-    b.buf <<= (p & 15);
-    b.nbits -= (int)(p & 15);
-  }
-}
-
 QT_FN bool emit(Trace& t, int32_t tok, uint32_t litw) {
   if (t.n >= t.cap) return false;
-  t.tok[t.n] = tok;
-  t.litw[t.n] = (int32_t)litw;
+  if (warp::leader()) {
+    t.tok[t.n] = tok;
+    t.litw[t.n] = (int32_t)litw;
+  }
   t.n++;
   return true;
 }
@@ -170,20 +142,73 @@ QT_FN void model_init(Model& m, int start, int len) {
   }
 }
 
-// The rescale once the total passes 3800: halve, or every fifth time turn
-// the cumulative frequencies into counts, halve them, exchange-sort the
-// symbols by count (the reference's i < j loop, whose order of equal counts
-// no key-based sort reproduces) and rebuild (codecs/qtm.py:133-155).
-QT_FN void model_update(Model& m) {
+// The first row k in [1, n) where hit(cum[k]) holds, or n: the search of
+// codecs/qtm.py:84-86. Lane l tests rows l and l + 32, whose values it
+// holds in a and b.
+template <class F>
+QT_FN int first_row(const warp::Lanes<uint32_t>& a,
+                    const warp::Lanes<uint32_t>& b, int n, F hit) {
+  uint64_t lo = warp::ballot([&](int l) {
+    return l >= 1 && l < n && hit(a.at(l));
+  });
+  uint64_t hi = warp::ballot([&](int l) {
+    return l + 32 < n && hit(b.at(l));
+  });
+  uint64_t mask = lo | (hi << 32);
+  return mask ? warp::ffs64(mask) - 1 : n;
+}
+
+QT_FN warp::Lanes<uint32_t> rows(const Model& m, int base) {
+  return warp::map<uint32_t>([&](int l) { return (uint32_t)m.cum[l + base]; });
+}
+
+// What a symbol reads of its model before the search, loaded ahead of it:
+// the rows as the lanes hold them (a: row l, c: row l + 32), the total
+// and the entries.
+struct Rows {
+  warp::Lanes<uint32_t> a, c;
+  uint32_t total;
+  int n;
+};
+
+QT_FN Rows load(const Model& m) {
+  Rows w = {rows(m, 0), rows(m, 32), m.cum[0], m.entries};
+  return w;
+}
+
+// The halving rescale. The reference's loop from the top down,
+// cum'[i] = max(cum[i] >> 1, cum'[i + 1] + 1) with cum'[n] = 0
+// (codecs/qtm.py:138-142), is cum'[i] = max(e[i..n]) - i with
+// e[j] = (cum[j] >> 1) + j for j < n and e[n] = n: a suffix max over the
+// warp, lane l holding rows l and l + 32, row 64 beside them.
+QT_FN void halve(Model& m) {
   int n = m.entries;
-  if (--m.rescales_left) {
-    for (int i = n - 1; i >= 0; i--) {
-      m.cum[i] >>= 1;
-      if (m.cum[i] <= m.cum[i + 1]) m.cum[i] = (uint16_t)(m.cum[i + 1] + 1);
-    }
-    return;
+  auto e = [&](int j) -> uint32_t {
+    return j < n ? (uint32_t)(m.cum[j] >> 1) + j : j == n ? (uint32_t)n : 0u;
+  };
+  warp::Lanes<uint32_t> a = warp::map<uint32_t>([&](int l) { return e(l); });
+  warp::Lanes<uint32_t> b =
+      warp::map<uint32_t>([&](int l) { return e(l + 32); });
+  for (int d = 1; d < 32; d <<= 1) {
+    a = warp::max(a, warp::shfl_down(a, d));
+    b = warp::max(b, warp::shfl_down(b, d));
   }
-  m.rescales_left = 50;
+  uint32_t top = e(64);
+  uint32_t upper = warp::shfl(b, 0);  // the max of rows 32..63
+  a = warp::max(a, upper > top ? upper : top);
+  b = warp::max(b, top);
+  warp::each([&](int l) {
+    if (l < n) m.cum[l] = (uint16_t)(a.at(l) - l);
+    if (l + 32 < n) m.cum[l + 32] = (uint16_t)(b.at(l) - (l + 32));
+  });
+}
+
+// Turn the cumulative frequencies into counts, halve them, exchange-sort
+// the symbols by count (the reference's i < j loop, whose order of equal
+// counts no key-based sort reproduces) and rebuild (codecs/qtm.py:143-155).
+// Lane 0 alone.
+QT_FN void sort_rebuild(Model& m) {
+  int n = m.entries;
   for (int i = 0; i < n; i++) {
     m.cum[i] = (uint16_t)(((m.cum[i] - m.cum[i + 1]) + 1) >> 1);
   }
@@ -204,39 +229,95 @@ QT_FN void model_update(Model& m) {
   }
 }
 
-// One symbol of model m: search, narrow, update, renormalise
-// (codecs/qtm.py:74-131, qtmd.c:92-123).
-QT_FN int get_symbol(Bits& b, State& s, Model& m) {
-  uint32_t span = (uint32_t)(uint16_t)(s.H - s.L) + 1;
-  uint32_t total = m.cum[0];
-  uint32_t symf =
-      (((uint32_t)(uint16_t)(s.C - s.L) + 1) * total - 1) / span & 0xFFFF;
-  int i = 1;
-  while (i < m.entries && m.cum[i] > symf) i++;
-  int sym = m.sym[i - 1];
-  uint32_t lo = s.L, hi = s.H, code = s.C;
-  hi = (lo + (m.cum[i - 1] * span) / total - 1) & 0xFFFF;
-  lo = (lo + (m.cum[i] * span) / total) & 0xFFFF;
-  for (int j = i - 1; j >= 0; j--) m.cum[j] = (uint16_t)(m.cum[j] + 8);
-  if (m.cum[0] > 3800) model_update(m);
-  for (;;) {
-    if ((lo & 0x8000) != (hi & 0x8000)) {
-      if ((lo & 0x4000) && !(hi & 0x4000)) {
-        code ^= 0x4000;  // underflow: shift out the second-highest bit
-        lo &= 0x3FFF;
-        hi |= 0x4000;
-      } else {
-        break;
-      }
-    }
-    lo = (lo << 1) & 0xFFFF;
-    hi = ((hi << 1) | 1) & 0xFFFF;
-    code = ((code << 1) | take(b, 1)) & 0xFFFF;
+// The rescale once the total passes 3800: halve, or at the fourth rescale
+// and every 50th after it sort and rebuild (codecs/qtm.py:133-155).
+QT_FN void model_update(Model& m) {
+  int left = m.rescales_left - 1;
+  warp::sync();
+  if (left) {
+    if (warp::leader()) m.rescales_left = left;
+    halve(m);
+  } else if (warp::leader()) {
+    m.rescales_left = 50;
+    sort_rebuild(m);
   }
-  s.L = (uint16_t)lo;
-  s.H = (uint16_t)hi;
-  s.C = (uint16_t)code;
+  warp::sync();
+}
+
+// After a symbol at row i: the +8 update of rows 0..i-1, whose values lane
+// l holds in a (row l) and b (row l + 32), then the rescale if the total
+// passes 3800. Every lane has read the rows it needs.
+QT_FN void update(Model& m, int i, const warp::Lanes<uint32_t>& a,
+                  const warp::Lanes<uint32_t>& b, uint32_t total) {
+  warp::sync();
+  warp::each([&](int l) {
+    if (l < i) m.cum[l] = (uint16_t)(a.at(l) + 8);
+    if (l + 32 < i) m.cum[l + 32] = (uint16_t)(b.at(l) + 8);
+  });
+  warp::sync();
+  if (total + 8 > 3800) model_update(m);
+}
+
+// The renormalisation loop (codecs/qtm.py:117-131) in one step. It first
+// shifts k1 times while the top bits of lo and hi agree: k1 is their
+// leading equal bits, 16 when lo == hi. Then it makes k2 underflow steps,
+// one for each leading position from bit 14 down where lo has a 1 and hi a
+// 0 after those shifts (the bits shifted in, 0 into lo and 1 into hi, end
+// the run). So lo and hi come out in closed form, code takes k1 + k2 bits
+// at once, and of the underflow steps' flips of code's bit 14 only the
+// last, shifted once more into bit 15, survives. k1 + k2 <= 16, since each
+// step doubles hi - lo (plus one).
+QT_FN void renorm(Bits& b, uint32_t& lo, uint32_t& hi, uint32_t& code) {
+  uint32_t x = (lo ^ hi) & 0xFFFF;
+  int k1 = x ? warp::clz32(x) - 16 : 16;
+  int k2 = warp::clz32(
+      ~(uint32_t)((uint64_t)(lo & ~hi & 0xFFFF) << (k1 + 17)));
+  int k = k1 + k2;
+  uint32_t lk = (lo << k1) & 0xFFFF;
+  uint32_t hk = ((hi << k1) | ((1u << k1) - 1)) & 0xFFFF;
+  uint32_t in = b.peek(16) >> (16 - k);  // k bits; none for k = 0
+  b.drop(k);
+  code = (((code << k) | in) & 0xFFFF) ^ (k2 ? 0x8000u : 0u);
+  lo = k2 ? (lk << k2) & 0x7FFF : lk;
+  hi = k2 ? ((hk << k2) | ((1u << k2) - 1) | 0x8000) & 0xFFFF : hk;
+}
+
+// One symbol of model m, whose rows w holds (codecs/qtm.py:74-131,
+// qtmd.c:92-123): search, narrow, update, renormalise. The reference's
+// search value is symf = (num / span) & 0xFFFF; where num / span < 2^16,
+// as everywhere after a coder init or a renormalisation (span > 2^14),
+// cum[k] <= symf is cum[k] * span <= num, so the search waits for no
+// division; the other case divides and tests cum[k] * 1 <= symf. The new
+// bounds need cum[i - 1] * span / total and cum[i] * span / total: each
+// lane divides for its own two rows beside the search, and two shuffles
+// fetch rows i - 1 and i (row 64, the sentinel, is 0).
+QT_FN int get_symbol(Bits& b, Regs& r, Model& m, const Rows& w) {
+  uint32_t span = ((r.H - r.L) & 0xFFFF) + 1;
+  uint32_t num = (((r.C - r.L) & 0xFFFF) + 1) * w.total - 1;
+  uint32_t mul = span, lim = num;
+  if ((num >> 16) >= span) {
+    mul = 1;
+    lim = (num / span) & 0xFFFF;
+  }
+  int i = first_row(w.a, w.c, w.n, [&](uint32_t v) { return v * mul <= lim; });
+  warp::Lanes<uint32_t> qa =
+      warp::map<uint32_t>([&](int l) { return w.a.at(l) * span / w.total; });
+  warp::Lanes<uint32_t> qc =
+      warp::map<uint32_t>([&](int l) { return w.c.at(l) * span / w.total; });
+  uint32_t q1 = warp::shfl(i - 1 < 32 ? qa : qc, (i - 1) & 31);
+  uint32_t q0 = i < 64 ? warp::shfl(i < 32 ? qa : qc, i & 31) : 0u;
+  uint32_t hi = (r.L + q1 - 1) & 0xFFFF;
+  uint32_t lo = (r.L + q0) & 0xFFFF;
+  int sym = m.sym[i - 1];
+  update(m, i, w.a, w.c, w.total);
+  renorm(b, lo, hi, r.C);
+  r.L = lo;
+  r.H = hi;
   return sym;
+}
+
+QT_FN int get_symbol(Bits& b, Regs& r, Model& m) {
+  return get_symbol(b, r, m, load(m));
 }
 
 QT_FN uint32_t extra_bits(int slot) { return (slot < 2 ? 0 : slot - 2) >> 1; }
@@ -259,24 +340,30 @@ QT_FN uint32_t length_base(int slot) {
   return 2u + (4u << e) - 4u + ((uint32_t)((slot - 2) & 3) << e);
 }
 
-// Decode until s.outpos reaches target (or an error).
-QT_FN int run(Bits& b, State& s, Trace& t, int64_t target, int wbits) {
+// Decode until r.outpos reaches target (or an error).
+QT_FN int run(Bits& b, Regs& r, State& s, Trace& t, int64_t target,
+              int wbits) {
   int64_t wsize = (int64_t)1 << wbits;
   int64_t limit = b.n * 8 + 16;  // the reference's soft end of input
-  while (s.outpos < target) {
-    if (s.frame_todo == FRAME) {  // coder init from 16 raw bits
-      s.H = 0xFFFF;
-      s.L = 0;
-      s.C = (uint16_t)take(b, 16);
+  while (r.outpos < target) {
+    if (r.frame_todo == FRAME) {  // coder init from 16 raw bits
+      r.H = 0xFFFF;
+      r.L = 0;
+      r.C = b.take(16);
     }
-    int sel = get_symbol(b, s, s.m[0]);
+    // the literal models' rows, loaded beside the selector's symbol, which
+    // writes only the selector model
+    Rows w0 = load(s.m[1]), w1 = load(s.m[2]), w2 = load(s.m[3]),
+         w3 = load(s.m[4]);
+    int sel = get_symbol(b, r, s.m[0]);
     if (sel < 4) {
-      uint32_t v = (uint32_t)get_symbol(b, s, s.m[1 + sel]);
+      Rows w = sel == 0 ? w0 : sel == 1 ? w1 : sel == 2 ? w2 : w3;
+      uint32_t v = (uint32_t)get_symbol(b, r, s.m[1 + sel], w);
       t.word |= v << (8 * t.cnt);
       t.cnt++;
-      s.outpos++;
-      s.frame_todo--;
-      if ((t.cnt == 4 || s.frame_todo == 0 || s.outpos >= target) &&
+      r.outpos++;
+      r.frame_todo--;
+      if ((t.cnt == 4 || r.frame_todo == 0 || r.outpos >= target) &&
           !flush(t)) {
         return ERR_TCAP;
       }
@@ -284,23 +371,23 @@ QT_FN int run(Bits& b, State& s, Trace& t, int64_t target, int wbits) {
       int64_t len;
       int slot;
       if (sel == 4) {
-        slot = get_symbol(b, s, s.m[5]);
+        slot = get_symbol(b, r, s.m[5]);
         len = 3;
       } else if (sel == 5) {
-        slot = get_symbol(b, s, s.m[6]);
+        slot = get_symbol(b, r, s.m[6]);
         len = 4;
       } else if (sel == 6) {
-        int ls = get_symbol(b, s, s.m[8]);
-        len = length_base(ls) + take(b, length_extra(ls)) + 5;
-        slot = get_symbol(b, s, s.m[7]);
+        int ls = get_symbol(b, r, s.m[8]);
+        len = length_base(ls) + b.take(length_extra(ls)) + 5;
+        slot = get_symbol(b, r, s.m[7]);
       } else {
         return ERR_DATA;
       }
-      int64_t off = position_base(slot) + take(b, extra_bits(slot)) + 1;
-      int64_t lap = s.outpos & (wsize - 1);
+      int64_t off = position_base(slot) + b.take(extra_bits(slot)) + 1;
+      int64_t lap = r.outpos & (wsize - 1);
       if (off > lap && off - lap > wsize) return ERR_DATA;
-      s.frame_todo -= (int32_t)len;
-      if (s.frame_todo < 0) return ERR_DATA;  // overshot frame alignment
+      r.frame_todo -= (int32_t)len;
+      if (r.frame_todo < 0) return ERR_DATA;  // overshot frame alignment
       if (!flush(t)) return ERR_TCAP;
       if (lap + len > wsize) t.wraps++;
       // a ring-window source this lap has overwritten: two linear tokens
@@ -318,32 +405,39 @@ QT_FN int run(Bits& b, State& s, Trace& t, int64_t target, int wbits) {
       } else if (!emit(t, TOK_MATCH | (int32_t)len, (uint32_t)off)) {
         return ERR_TCAP;
       }
-      s.outpos += len;
+      r.outpos += len;
     }
-    if (s.frame_todo == 0) {  // byte realign, then scan to the trailer
-      take(b, b.nbits & 7);
+    if (r.frame_todo == 0) {  // byte realign, then scan to the trailer
+      b.take(b.nbits & 7);
       for (;;) {
-        if (tell(b) >= b.n * 8) return ERR_DATA;
-        if (take(b, 8) == 0xFF) break;
+        if (b.tell() >= b.n * 8) return ERR_DATA;
+        if (b.take(8) == 0xFF) break;
       }
-      s.frame_todo = FRAME;
+      r.frame_todo = FRAME;
     }
-    if (tell(b) > limit) return ERR_DATA;
+    if (b.tell() > limit) return ERR_DATA;
   }
   return ERR_OK;
 }
 
+// A fresh record: zeros (lane by lane), then the models (lane 0).
 QT_FN void init(State& s, int wbits) {
-  uint8_t* p = reinterpret_cast<uint8_t*>(&s);
-  for (unsigned k = 0; k < sizeof(State); k++) p[k] = 0;
-  s.frame_todo = FRAME;
-  int span = wbits * 2;
-  model_init(s.m[0], 0, 7);
-  for (int k = 0; k < 4; k++) model_init(s.m[1 + k], 64 * k, 64);
-  model_init(s.m[5], 0, span < 24 ? span : 24);
-  model_init(s.m[6], 0, span < 36 ? span : 36);
-  model_init(s.m[7], 0, span);
-  model_init(s.m[8], 0, 27);
+  uint32_t* p = reinterpret_cast<uint32_t*>(&s);
+  warp::each([&](int l) {
+    for (unsigned k = l; k < sizeof(State) / 4; k += 32) p[k] = 0;
+  });
+  warp::sync();
+  if (warp::leader()) {
+    s.frame_todo = FRAME;
+    int span = wbits * 2;
+    model_init(s.m[0], 0, 7);
+    for (int k = 0; k < 4; k++) model_init(s.m[1 + k], 64 * k, 64);
+    model_init(s.m[5], 0, span < 24 ? span : 24);
+    model_init(s.m[6], 0, span < 36 ? span : 36);
+    model_init(s.m[7], 0, span);
+    model_init(s.m[8], 0, 27);
+  }
+  warp::sync();
 }
 
 // Decode one stream of n bytes up to output position target, resuming
@@ -352,15 +446,29 @@ QT_FN Result decode_stream(const uint8_t* src, int64_t n, int64_t target,
                            int wbits, State& s, int32_t* tok, int32_t* litw,
                            int32_t cap) {
   Trace t = {tok, litw, cap, 0, 0, 0, 0};
-  if (s.err == ERR_OK && s.outpos < target) {
+  Regs r = {s.outpos, s.frame_todo, s.H, s.L, s.C};
+  int32_t err = s.err;
+  int64_t bitpos = s.bitpos;
+  if (err == ERR_OK && r.outpos < target) {
     Bits b = {src, n, 0, 0, 0};
-    seek(b, s.bitpos);
-    s.err = run(b, s, t, target, wbits);
-    s.bitpos = tell(b);
+    b.seek(bitpos);
+    err = run(b, r, s, t, target, wbits);
+    bitpos = b.tell();
   }
-  Result r = {s.err, (int32_t)s.outpos, t.n,
-              (int32_t)((s.bitpos + 7) >> 3), t.wraps};
-  return r;
+  warp::sync();
+  if (warp::leader()) {
+    s.bitpos = bitpos;
+    s.outpos = r.outpos;
+    s.frame_todo = r.frame_todo;
+    s.err = err;
+    s.H = (uint16_t)r.H;
+    s.L = (uint16_t)r.L;
+    s.C = (uint16_t)r.C;
+  }
+  warp::sync();
+  Result res = {err, (int32_t)r.outpos, t.n, (int32_t)((bitpos + 7) >> 3),
+                t.wraps};
+  return res;
 }
 
 // Counts rows of lane i in an (8, L) grid: 0 err, 1 output position,
@@ -380,8 +488,9 @@ QT_FN void write_counts(int32_t* cnt, int64_t L, int64_t i, Result r) {
 }  // namespace qt
 
 #ifdef QTM_CORE_HOST_TWIN
-// Host twin of the kernel's launch: the same per-lane call, one lane after
-// another. Built only by the tests.
+// Host twin of the kernel's launch: the same per-stream call, one stream
+// after another, with the warp's lanes evaluated in turn. Built only by
+// the tests.
 extern "C" int64_t qt_state_bytes() { return sizeof(qt::State); }
 
 extern "C" int qt_decode_host(const uint8_t* streams, int64_t stride,
@@ -398,5 +507,40 @@ extern "C" int qt_decode_host(const uint8_t* streams, int64_t stride,
     qt::write_counts(cnt, L, i, r);
   }
   return 0;
+}
+
+// The warp steps alone, for the tests. qt_model_symbol: one symbol's model
+// work on a qt::Model record at search value symf (search, +8 update,
+// rescale); returns the row found. qt_rescale: one rescale.
+extern "C" int64_t qt_model_bytes() { return sizeof(qt::Model); }
+
+extern "C" int qt_model_symbol(uint8_t* model, uint32_t symf) {
+  qt::Model& m = *reinterpret_cast<qt::Model*>(model);
+  qt::Rows w = qt::load(m);
+  int i = qt::first_row(w.a, w.c, w.n,
+                        [&](uint32_t v) { return v <= symf; });
+  qt::update(m, i, w.a, w.c, w.total);
+  return i;
+}
+
+extern "C" void qt_rescale(uint8_t* model) {
+  qt::model_update(*reinterpret_cast<qt::Model*>(model));
+}
+
+// renorm on n coder states (lo, hi, code) with the 32 stream bits that
+// follow each (MSB first): the new states in place, the bits taken in used.
+extern "C" void qt_renorm(uint16_t* lo, uint16_t* hi, uint16_t* code,
+                          const uint32_t* next, int64_t n, uint8_t* used) {
+  for (int64_t k = 0; k < n; k++) {
+    uint8_t src[4] = {(uint8_t)(next[k] >> 24), (uint8_t)(next[k] >> 16),
+                      (uint8_t)(next[k] >> 8), (uint8_t)next[k]};
+    qt::Bits b = {src, 4, 0, 0, 0};
+    uint32_t l = lo[k], h = hi[k], c = code[k];
+    qt::renorm(b, l, h, c);
+    lo[k] = (uint16_t)l;
+    hi[k] = (uint16_t)h;
+    code[k] = (uint16_t)c;
+    used[k] = (uint8_t)b.tell();
+  }
 }
 #endif

@@ -13,8 +13,9 @@ CUDA toolkit, and only ``lib()`` needs one.
 ``host_twin()``, ``host_twin_lzx()`` and ``host_twin_qtm()`` build the
 per-stream cores (``deflate_core.cuh``, ``lzx_core.cuh``,
 ``qtm_core.cuh``) with g++ instead, for the tests:
-the same C++ the kernels run, on the CPU. Each twin is keyed by its own
-header's sha256.
+the same C++ the kernels run, on the CPU, the warp steps of K3 and K4
+evaluated lane by lane (``stream_core.cuh``). Each twin is keyed by the
+sha256 of its header and the headers it includes.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -126,6 +128,44 @@ def lib():
     return _lib
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: the last part of its nested
+    name (``_ZN12_GLOBAL__N_117p5_masksum_kernelE...``) or its plain name
+    (``_Z13k3_lzx_kernel...``), with a bool template argument as
+    ``<true>``/``<false>``."""
+    rest, parts = mangled[2:], []
+    nested = rest.startswith("N")
+    rest = rest[1:] if nested else rest
+    while rest[:1].isdigit():
+        m = re.match(r"\d+", rest)
+        n = int(m.group())
+        parts.append(rest[m.end():m.end() + n])
+        rest = rest[m.end() + n:]
+        if not nested:
+            break
+    arg = {"ILb1E": "<true>", "ILb0E": "<false>"}.get(rest[:5], "")
+    return (parts[-1] if parts else mangled) + arg
+
+
+def ptxas_report(log: str = None) -> dict:
+    """{kernel name: its ptxas lines (stack frame and spills; registers and
+    shared memory), joined} from a build's ``-Xptxas -v`` log (by default
+    the last build's; empty when ``lib()`` reused a built library)."""
+    out, cur, mangled = {}, None, None
+    for line in (build_info.get("ptxas", "") if log is None
+                 else log).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        p = re.search(r"Function properties for (\w+)", line)
+        if m:
+            mangled, cur = m.group(1), kernel_name(m.group(1))
+            out[cur] = []
+        elif p and p.group(1) != mangled:   # a device function's
+            cur = None
+        elif cur and ("stack frame" in line or "Used" in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def _nvcc_parallel(cus: list[str], so: str) -> str:
     """One ``nvcc -c`` per source, all running at once, then one link into
     ``so``. Returns the compilers' stderr (the ptxas report); raises with
@@ -155,15 +195,17 @@ def _nvcc_parallel(cus: list[str], so: str) -> str:
     return "".join(logs)
 
 
-def _twin(header: str, define: str):
-    """g++ build of one core header's host entry points (tests only).
-    Raises if g++ is missing or the build fails."""
+def _twin(header: str, define: str, includes=()):
+    """g++ build of one core header's host entry points (tests only), keyed
+    by it and the ``includes`` it pulls in from ``csrc``. Raises if g++ is
+    missing or the build fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
     src = os.path.join(CSRC, header)
     stem = header.split("_")[0]
-    so = os.path.join(BUILD_DIR, f"{stem}_twin_{source_tag([src])}.so")
+    tag = source_tag([src] + [os.path.join(CSRC, h) for h in includes])
+    so = os.path.join(BUILD_DIR, f"{stem}_twin_{tag}.so")
     if not os.path.exists(so):
         compile_to([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
                   f"-D{define}", "-x", "c++", src], so)
@@ -180,24 +222,39 @@ def host_twin():
 
 
 def host_twin_lzx():
-    """The LZX core's twin: ``lz_decode_host``, K3's launch, and
-    ``lz_state_bytes``."""
-    handle = _twin("lzx_core.cuh", "LZX_CORE_HOST_TWIN")
+    """The LZX core's twin: ``lz_decode_host``, K3's launch,
+    ``lz_state_bytes``, and the table decode alone: ``lz_first_bits(tree)``
+    (the first-level bits of the main, length, aligned and pretree tables)
+    and ``lz_table_decode``."""
+    handle = _twin("lzx_core.cuh", "LZX_CORE_HOST_TWIN", ["stream_core.cuh"])
     handle.lz_decode_host.argtypes = _SIGNATURES["msp_k3_lzx"][:-1]
     handle.lz_decode_host.restype = ctypes.c_int
     handle.lz_state_bytes.argtypes = []
     handle.lz_state_bytes.restype = _I64
+    handle.lz_first_bits.argtypes = [_I]
+    handle.lz_first_bits.restype = ctypes.c_int
+    handle.lz_table_decode.argtypes = [_P, _I, _I, _P, _I64, _I, _P, _P]
+    handle.lz_table_decode.restype = ctypes.c_int
     return handle
 
 
 def host_twin_qtm():
-    """The Quantum core's twin: ``qt_decode_host``, K4's launch, and
-    ``qt_state_bytes``."""
-    handle = _twin("qtm_core.cuh", "QTM_CORE_HOST_TWIN")
+    """The Quantum core's twin: ``qt_decode_host``, K4's launch,
+    ``qt_state_bytes``, and the warp steps alone: ``qt_model_symbol``,
+    ``qt_rescale`` (on a ``qt::Model`` record of ``qt_model_bytes``) and
+    ``qt_renorm``."""
+    handle = _twin("qtm_core.cuh", "QTM_CORE_HOST_TWIN", ["stream_core.cuh"])
     handle.qt_decode_host.argtypes = _SIGNATURES["msp_k4_qtm"][:-1]
     handle.qt_decode_host.restype = ctypes.c_int
-    handle.qt_state_bytes.argtypes = []
-    handle.qt_state_bytes.restype = _I64
+    for name in ("qt_state_bytes", "qt_model_bytes"):
+        getattr(handle, name).argtypes = []
+        getattr(handle, name).restype = _I64
+    handle.qt_model_symbol.argtypes = [_P, ctypes.c_uint32]
+    handle.qt_model_symbol.restype = ctypes.c_int
+    handle.qt_rescale.argtypes = [_P]
+    handle.qt_rescale.restype = None
+    handle.qt_renorm.argtypes = [_P, _P, _P, _P, _I64, _P]
+    handle.qt_renorm.restype = None
     return handle
 
 

@@ -27,8 +27,9 @@ device:
 ``tcap`` bounds the tokens per lane and call. Every token carries at least
 one output byte, so ``tcap`` = the bytes a call decodes is always enough.
 
-A CUDA tensor runs the hand-written kernel (``csrc/lzx.cu``); a CPU tensor
-runs ``lzx_phase_a_plain``, a straightforward Python decoder of the same
+A CUDA tensor runs the hand-written kernel (``csrc/lzx.cu``, one warp per
+stream, rows copied to 4-byte alignment first where they are not); a CPU
+tensor runs ``lzx_phase_a_plain``, a straightforward Python decoder of the same
 format, counts and state record. ``LAUNCHES`` counts both.
 """
 from __future__ import annotations
@@ -75,7 +76,8 @@ _SCALARS = ("bitpos", "outpos", "r0", "r1", "r2", "block_type",
 LAUNCHES = {"cuda": 0, "plain": 0}
 
 __all__ = ["lzx_phase_a", "lzx_phase_a_plain", "pack_streams",
-           "from_jax_batch", "LAUNCHES", "STATE_BYTES", "STATE_DTYPE"]
+           "from_jax_batch", "word_aligned", "LAUNCHES", "STATE_BYTES",
+           "STATE_DTYPE"]
 
 
 def from_jax_batch(stream_grid):
@@ -88,6 +90,19 @@ def from_jax_batch(stream_grid):
     streams = np.ascontiguousarray(words).view(np.uint8)
     lens = np.full(streams.shape[0], streams.shape[1], np.int32)
     return torch.from_numpy(streams.copy()), torch.from_numpy(lens)
+
+
+def word_aligned(streams):
+    """``streams`` with every row on a 4-byte boundary, as the bit readers
+    of K3 and K4 load 32-bit words: the tensor itself when its rows are,
+    else a copy with each row padded to a multiple of 4 bytes."""
+    if streams.data_ptr() % 4 == 0 and streams.stride(0) % 4 == 0:
+        return streams
+    L, width = streams.shape
+    out = torch.zeros((L, (width + 3) & ~3), dtype=torch.uint8,
+                      device=streams.device)
+    out[:, :width] = streams
+    return out
 
 
 def _check_batch(streams, lens, out_lens, hists, window_bits, is_delta,
@@ -142,6 +157,7 @@ def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
         raise ValueError(f"unsupported device {streams.device}")
     L = streams.shape[0]
     dev = streams.device
+    streams = word_aligned(streams)
     lib = kernels.lib()
     if lib.msp_k3_state_bytes() != STATE_BYTES:
         raise RuntimeError("lz::State and STATE_DTYPE differ in size")

@@ -26,8 +26,9 @@ cabd.c:1327-1332), their byte lengths and their target output positions.
 ``tcap`` bounds the tokens per lane and call. Every token carries at least
 one output byte, so ``tcap`` = the bytes a call decodes is always enough.
 
-A CUDA tensor runs the hand-written kernel (``csrc/qtm.cu``); a CPU tensor
-runs ``qtm_phase_a_plain``, a straightforward Python decoder of the same
+A CUDA tensor runs the hand-written kernel (``csrc/qtm.cu``, one warp per
+stream, rows copied to 4-byte alignment first where they are not); a CPU
+tensor runs ``qtm_phase_a_plain``, a straightforward Python decoder of the same
 format, counts and state record. ``LAUNCHES`` counts both.
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ import torch
 from .. import kernels
 from .._device import resolve_device
 from .cuda_inflate import pack_streams
-from .cuda_lzx import TOK_LIT, TOK_MATCH, TOK_NOP, from_jax_batch
+from .cuda_lzx import (TOK_LIT, TOK_MATCH, TOK_NOP, from_jax_batch,
+                       word_aligned)
 
 FRAME = 32768
 NT = 9
@@ -119,6 +121,7 @@ def qtm_phase_a(streams, lens, out_lens, window_bits, *, tcap, state=None,
         raise ValueError(f"unsupported device {streams.device}")
     L = streams.shape[0]
     dev = streams.device
+    streams = word_aligned(streams)
     lib = kernels.lib()
     if lib.msp_k4_state_bytes() != STATE_BYTES:
         raise RuntimeError("qt::State and STATE_DTYPE differ in size")

@@ -1,11 +1,13 @@
-"""What nvcc made of the probe kernels: a summary of each kernel's SASS.
+"""What nvcc made of the kernels: a summary of each kernel's SASS.
 
 A probe times a mechanism only if the compiled kernel still performs it:
 a sweep whose result the compiler can predict may be folded into one load
-or dropped. For each probe kernel in the library ``kernels.lib()`` builds,
-this prints its instruction count, its loads and stores by memory space,
-its compares and selects, and its backward branches (loops), and writes
-the whole listing to a file::
+or dropped. K3 and K4 keep their tables in shared memory, so their
+per-symbol loads should be LDS, not LDG or local LDL. For each kernel of
+KERNELS in the library ``kernels.lib()`` builds, this prints its
+instruction count, its loads and stores by memory space, its compares and
+selects, its warp votes and shuffles, and its backward branches (loops),
+and writes the whole listing to a file::
 
     python -m libmspack_tpu_torch.tools.sass [listing.txt [binary]]
 
@@ -23,13 +25,14 @@ from collections import Counter
 
 from .. import kernels
 
-KERNELS = ("p1_sweep_kernel", "p1_vec_kernel", "p2_skel_kernel",
+KERNELS = ("k3_lzx_kernel", "k4_qtm_kernel",
+           "p1_sweep_kernel", "p1_vec_kernel", "p2_skel_kernel",
            "p3_copy_kernel", "p5_dyngather_kernel", "p5_masksum_kernel",
            "p5_symbol_kernel", "p6_masksum_kernel", "p6_symbol_kernel",
            "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",
            "minscalar", "smem_scalar", "u64shift", "dma_row")
 OPS = ("LDG", "LDS", "LDL", "LD", "STG", "STS", "STL", "ST", "ISETP", "SEL",
-       "SHFL", "REDUX")   # LD, ST: generic addresses
+       "SHFL", "REDUX", "VOTE", "WARPSYNC")   # LD, ST: generic addresses
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -49,8 +52,8 @@ def listing(binary: str = None) -> str:
 
 
 def _kernel(mangled: str):
-    """A probe kernel's name, with its bool template argument if it has
-    one (``p1_sweep_kernel<true>``); None for other functions."""
+    """A kernel's name, with its bool template argument if it has one
+    (``p1_sweep_kernel<true>``); None for other functions."""
     name = next((k for k in KERNELS if k in mangled), None)
     for arg, word in (("ILb1E", "<true>"), ("ILb0E", "<false>")):
         if name and arg in mangled:
@@ -59,7 +62,7 @@ def _kernel(mangled: str):
 
 
 def summarise(text: str) -> dict:
-    """``{kernel: Counter}`` for the probe kernels in a SASS listing: each
+    """``{kernel: Counter}`` for the kernels in a SASS listing: each
     opcode in OPS (by its base name), ``insns`` and ``loops`` (branches to
     an earlier address)."""
     out, cur = {}, None
