@@ -2,27 +2,33 @@
 """Drive the PyTorch + CUDA port's main path once on one GPU, and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-k12   # K1 and K2 alone (time_k12)
     python3 chip_smoke.py --time-k34   # K3 and K4 alone (time_k34)
+    python3 chip_smoke.py --diag-k1    # where K1's time goes (diag_k1)
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels (nvcc, sm_90a); print the build time, each kernel's
    ptxas report (stack frame, spills, registers, shared memory) and the
-   SASS summary of K3 and K4 (loads and stores by memory space,
-   ``tools/sass.py``);
+   SASS summary of K1, K2's two passes, K3 and K4 (loads and stores by
+   memory space, ``tools/sass.py``);
 3. K1 against its plain version on the edge-case batch
    (libmspack_tpu_torch/edge_cases.py): counts, tokens and resolved bytes
    must be equal;
 4. K2 against its plain version on those traces: bytes and counts equal;
    then both kernels against their plain versions, and timed, at the
-   shapes of the main path;
+   shapes of the main path: K1 on one folder (the driver's launch) with
+   the folder's literals and matches and K1's ns per symbol of its
+   longest frame, K1 on the whole cabinet at 1, 2, 4 and 8 warps a block,
+   K2 on the whole cabinet with the time of each pass;
 5. the bench's 96 MiB MSZIP cabinet (four 24 MiB folders, 3072 frames;
    ``build_corpus`` and ``build_cab`` below give bench.py's bytes)
    extracted through create_cab_decompressor(engine="cuda"); the bytes
    must equal the corpus, K1 must have launched, nothing may decline; the
    port's engine="native" (host C++) on the same cabinet for comparison;
 6. the same folders through CudaMszipEngine(phase_b="device"): bytes equal
-   and K2 launched;
+   and K2 launched; then phase_b="host", and device phase B (k2_ms +
+   bytes_pull_ms) beside host phase B (trace_pull_ms + host_resolve_ms);
 7. K3 against its plain version on the LZX edge batch
    (libmspack_tpu_torch/lzx_edge_cases.py): counts, tokens and state
    records equal, bytes equal to the reference codec's; and K3 in
@@ -68,7 +74,9 @@ over n values a tree of depth log2 n, a loop that ends early as far as
 this run's data takes it: ``tools.Work``) over the SM clock. No PyTorch
 call computes these decoders, so their ``library_ms`` is null; for the
 gather probes it is the time of ``torch.gather`` on the same inputs (and
-the remainder, for P6's). A probe's time is the largest of its tool's
+the remainder, for P6's). K2's chain is its two passes': the most tokens
+of one lane (pass 1) plus the most lanes of one chain (pass 2, one
+dependent step a lane). A probe's time is the largest of its tool's
 shapes. The last line is {"ok": true, "device": {...}}. It imports
 neither JAX nor the JAX package nor bench.py nor tools/.
 """
@@ -175,6 +183,20 @@ def trace_mix(tok):
     return int(lits.sum()), tok[(tok & 0x40000000) != 0] & 0xFFFFFF
 
 
+def deflate_mix(tok, ntok):
+    """(literals, matches) of each lane of K1 tokens ``(L, T)`` with
+    ``ntok`` tokens each: a literal token carries 1-4 literals, a match
+    token 0-3 pending ones."""
+    import numpy as np
+
+    tok = np.asarray(tok)
+    live = np.arange(tok.shape[1])[None, :] < np.asarray(ntok)[:, None]
+    lit = live & (tok >= 0) & ((tok & 0x20000000) != 0)
+    mat = live & (tok >= 0) & ((tok & 0x40000000) != 0)
+    lits = np.where(lit, tok & 7, 0) + np.where(mat, (tok >> 25) & 3, 0)
+    return lits.sum(axis=1), mat.sum(axis=1)
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -230,6 +252,9 @@ def k1_compare(cases, device, tcap):
 
 
 def k2_compare(tok, litw, ntok, sizes, flags, device):
+    """K2 on ``device`` (best of 3) and its plain version on one batch;
+    returns (device results on the CPU, max abs byte difference, ms, plain
+    ms, (pass 1 ms, pass 2 ms) of the best run, None off the card)."""
     import torch
 
     from libmspack_tpu_torch.ops import cuda_resolve as cr
@@ -237,14 +262,21 @@ def k2_compare(tok, litw, ntok, sizes, flags, device):
     plain, plain_ms = timed(lambda: cr.resolve_frames_plain(
         tok, litw, ntok, sizes, flags), torch.device("cpu"))
     args = [t.to(device) for t in (tok, litw, ntok)]
-    dev, ms = timed(lambda: cr.resolve_frames_device(*args, sizes, flags),
-                    device, reps=3)
+    ms, dev, passes = float("inf"), None, None
+    for _ in range(3):
+        marks = [] if device.type == "cuda" else None
+        out, t = timed(lambda: cr.resolve_frames_device(
+            *args, sizes, flags, marks=marks), device)
+        if t < ms:
+            ms, dev = t, out
+            passes = (marks[0].elapsed_time(marks[1]),
+                      marks[1].elapsed_time(marks[2])) if marks else None
     dev = tuple(t.cpu() for t in dev)
     if not torch.equal(dev[1], plain[1]):
         raise AssertionError("K2 counts differ from the plain version")
     err = int((dev[0].int() - plain[0].int()).abs().max()) \
         if len(plain[0]) else 0
-    return dev, err, ms, plain_ms
+    return dev, err, ms, plain_ms, passes
 
 
 def extract_all(d, blob):
@@ -257,6 +289,28 @@ def extract_all(d, blob):
         d.extract(f, sink)
         parts.append(sink.getvalue())
     return b"".join(parts)
+
+
+DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
+            "k3_lzx_kernel", "k4_qtm_kernel")
+
+
+def build_report(t0, names):
+    """Build the kernels (if need be), then print the build's time, every
+    kernel's ptxas line and the SASS summary of the kernels ``names``."""
+    from libmspack_tpu_torch import kernels
+    from libmspack_tpu_torch.tools import sass
+
+    kernels.lib()
+    print(f"build: {time.perf_counter() - t0:.3f} s "
+          f"({kernels.build_info['path']})")
+    for name, line in sorted(kernels.ptxas_report().items()):
+        print(f"ptxas {name}: {line}")
+    found = sass.summarise(sass.listing())
+    for name in names:
+        c = found[name]
+        print(f"sass {name}: {c['insns']} insns, {c['loops']} loops; "
+              + " ".join(f"{o} {c[o]}" for o in sass.OPS if c[o]))
 
 
 class Clock:
@@ -282,7 +336,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
 
     import torch
 
-    from libmspack_tpu_torch import kernels, native
+    from libmspack_tpu_torch import native
 
     device = torch.device(device_name)
     clock = Clock()
@@ -291,18 +345,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     host = threading.Thread(target=native.lib)
     host.start()
     if device.type == "cuda":
-        from libmspack_tpu_torch.tools import sass
-
-        kernels.lib()
-        print(f"build: {time.perf_counter() - t0:.3f} s "
-              f"({kernels.build_info['path']})")
-        for name, line in sorted(kernels.ptxas_report().items()):
-            print(f"ptxas {name}: {line}")
-        found = sass.summarise(sass.listing())
-        for name in ("k3_lzx_kernel", "k4_qtm_kernel"):
-            c = found[name]
-            print(f"sass {name}: {c['insns']} insns, {c['loops']} loops; "
-                  + " ".join(f"{o} {c[o]}" for o in sass.OPS if c[o]))
+        build_report(t0, DECODERS)
     host.join()
     native.lib()   # raises if the host engine did not build
     clock.lap("build")
@@ -316,6 +359,80 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
         raise AssertionError(f"kernels differ from their plain versions: "
                              f"{bad}")
     return {"kernels": entries}
+
+
+def mszip_folders(total_mb):
+    """The bench's MSZIP cabinet of ``total_mb`` MiB: (corpus, cabinet,
+    folders as CudaMszipEngine takes them: [(frames without 'CK',
+    sizes)])."""
+    from libmspack_tpu_torch import create_cab_decompressor
+
+    t0 = time.perf_counter()
+    corpus = build_corpus(total_mb * MB)
+    blob = build_cab(corpus, "mszip")
+    print(f"cabinet: {len(corpus)} bytes in {len(blob)} bytes, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    probe = create_cab_decompressor(engine="native")
+    folders = []
+    for fol in probe.open(blob).folders:
+        frames, fsizes = probe.collect_mszip_frames(fol)
+        folders.append(([f[2:] for f in frames], fsizes))
+    print(f"host: open + collect_mszip_frames of {len(folders)} folders, "
+          f"{sum(len(f) for f, _ in folders)} frames: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return corpus, blob, folders
+
+
+def folder_cases(folders):
+    """Each frame of ``folders`` as a K1 case (history 0 for a folder's
+    first frame, 32768 after)."""
+    from libmspack_tpu_torch import edge_cases as ec
+
+    return [ec.Case("f", fr, 0 if j == 0 else 32768, None)
+            for frs, _ in folders for j, fr in enumerate(frs)]
+
+
+def chain_layout(folders):
+    """K2's lane sizes and hist flags for ``folders``, one chain each."""
+    import numpy as np
+
+    sizes = np.array([s for _, fs in folders for s in fs], np.int32)
+    flags = np.array([int(j > 0) for frs, _ in folders
+                      for j in range(len(frs))], np.int32)
+    return sizes, flags
+
+
+def k1_symbols(tok, cnt, ms):
+    """Print a K1 launch's literals and matches: in all, per frame (mean
+    and most) and K1's ns per symbol of its longest frame (its serial
+    chain); returns the longest frame's symbols."""
+    lits, mats = deflate_mix(tok.numpy(), cnt[2].numpy())
+    syms = lits + mats
+    i = int(syms.argmax())
+    print(f"K1 {len(syms)} frames: {int(lits.sum())} literals and "
+          f"{int(mats.sum())} matches, per frame {syms.mean():.0f} symbols "
+          f"on average, at most {int(syms[i])} ({int(lits[i])} literals, "
+          f"{int(mats[i])} matches): {ms * 1e6 / max(1, int(syms[i])):.1f} "
+          f"ns per symbol of the longest frame")
+    return int(syms[i])
+
+
+def k2_work(ntok, folders, nbytes):
+    """K2's (bytes, chain) for the bound: it reads each trace and writes
+    the bytes; its serial chain is the most tokens of one lane (pass 1)
+    plus the most lanes of one chain (pass 2). Prints the old chain's
+    bound (a whole folder's tokens, one warp per chain) beside it."""
+    import numpy as np
+
+    k2_bytes = 8 * int(ntok.sum()) + 16 * len(ntok) + nbytes
+    l0 = np.concatenate([[0], np.cumsum([len(f) for f, _ in folders])])
+    chain = int(ntok.max()) + max(len(f) for f, _ in folders)
+    whole = max(int(ntok[a:b].sum()) for a, b in zip(l0[:-1], l0[1:]))
+    print(f"K2 bound {bound(k2_bytes, chain)} (chain {chain}: a lane's "
+          f"tokens + a chain's lanes); one-warp-per-chain bound "
+          f"{bound(k2_bytes, whole)} (chain {whole})")
+    return k2_bytes, chain
 
 
 def mszip_phases(device, total_mb, edge_frame, reps, clock):
@@ -350,8 +467,8 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock):
     sizes = np.array([len(c.raw) if c.raw is not None else 0
                       for c in cases], np.int32)
     flags = np.array([int(c.chained) for c in cases], np.int32)
-    (ob, counts), e2, ms, pms = k2_compare(tok, litw, cnt[2].contiguous(),
-                                           sizes, flags, device)
+    (ob, counts), e2, ms, pms, _ = k2_compare(
+        tok, litw, cnt[2].contiguous(), sizes, flags, device)
     off = np.concatenate([[0], np.cumsum(sizes)])
     for i, c in enumerate(cases):
         if c.raw is not None and (
@@ -364,23 +481,9 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock):
 
     # the main path's shapes: one folder per K1 launch (the driver), the
     # whole cabinet per K2 launch (phase 6)
-    t0 = time.perf_counter()
-    corpus = build_corpus(total_mb * MB)
-    blob = build_cab(corpus, "mszip")
-    print(f"cabinet: {len(corpus)} bytes in {len(blob)} bytes, built in "
-          f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    probe = create_cab_decompressor(engine="native")
-    pcab = probe.open(blob)
-    folders = []
-    for fol in pcab.folders:
-        frames, fsizes = probe.collect_mszip_frames(fol)
-        folders.append(([f[2:] for f in frames], fsizes))
+    corpus, blob, folders = mszip_folders(total_mb)
     nframes = sum(len(f) for f, _ in folders)
-    print(f"host: open + collect_mszip_frames of {len(folders)} folders, "
-          f"{nframes} frames: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    fcases = [ec.Case("f", fr, 0 if j == 0 else 32768, None)
-              for j, fr in enumerate(folders[0][0])]
+    fcases = folder_cases(folders[:1])
     (tok, litw, cnt), plain, e, k1_ms, k1_plain_ms = k1_compare(
         fcases, device, ci.FRAME_MAX)
     e1 = max(e1, e)
@@ -389,35 +492,29 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock):
     print(f"K1 one folder ({len(fcases)} frames): kernel {k1_ms:.3f} ms, "
           f"plain {k1_plain_ms:.1f} ms, equal; bound "
           f"{bound(k1_bytes, k1_chain)}")
-    allc = [ec.Case("f", fr, 0 if j == 0 else 32768, None)
-            for frs, _ in folders for j, fr in enumerate(frs)]
+    k1_symbols(tok, cnt, k1_ms)
+    allc = folder_cases(folders)
     s, lens = ci.pack_streams([c.stream for c in allc])
     hists = torch.tensor([c.hist for c in allc], dtype=torch.int32)
     sd, ld, hd = (t.to(device) for t in (s, lens, hists))
     if device.type == "cuda":
-        for threads in (1, 8, 32, 64):
+        for warps in (1, 2, 4, 8):
             _, t_ms = timed(lambda: ci.inflate_phase_a(
-                sd, ld, hd, threads=threads), device, reps=3)
-            print(f"K1 whole cabinet ({len(allc)} frames), {threads} "
-                  f"threads/block: {t_ms:.3f} ms")
+                sd, ld, hd, warps=warps), device, reps=3)
+            print(f"K1 whole cabinet ({len(allc)} frames), {warps} "
+                  f"warps/block: {t_ms:.3f} ms")
     tok, litw, cnt = (t.cpu() for t in ci.inflate_phase_a(sd, ld, hd))
     del sd, ld, hd, plain
-    sizes = np.array([s for _, fs in folders for s in fs], np.int32)
-    flags = np.array([int(j > 0) for frs, _ in folders
-                      for j in range(len(frs))], np.int32)
-    (ob, counts), e, k2_ms, k2_plain_ms = k2_compare(
+    sizes, flags = chain_layout(folders)
+    (ob, counts), e, k2_ms, k2_plain_ms, passes = k2_compare(
         tok, litw, cnt[2].contiguous(), sizes, flags, device)
     e2 = max(e2, e)
     if bytes(ob.numpy()) != corpus:
         raise AssertionError("K2 whole cabinet: bytes differ")
-    # K2 reads each trace and writes the bytes; a folder's frames chain
-    ntok = cnt[2].numpy()
-    k2_bytes = 8 * int(ntok.sum()) + 16 * len(ntok) + len(corpus)
-    l0 = np.concatenate([[0], np.cumsum([len(f) for f, _ in folders])])
-    k2_chain = max(int(ntok[a:b].sum()) for a, b in zip(l0[:-1], l0[1:]))
-    print(f"K2 bound {bound(k2_bytes, k2_chain)}")
+    k2_bytes, k2_chain = k2_work(cnt[2].numpy(), folders, len(corpus))
     print(f"K2 whole cabinet ({nframes} frames, {len(folders)} chains): "
-          f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms, equal")
+          f"kernel {k2_ms:.3f} ms (pass 1, pass 2: {passes}), plain "
+          f"{k2_plain_ms:.1f} ms, equal")
     del tok, litw, cnt, ob
     clock.lap("4 K1, K2 at the main path's shapes")
 
@@ -457,7 +554,8 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock):
     clock.lap("5 MSZIP cabinet through the driver")
 
     # 6. device phase B over the whole cabinet, and host phase B likewise
-    cr.LAUNCHES["cuda"] = 0
+    cr.LAUNCHES["cuda"] = cr.LAUNCHES["plain"] = 0
+    phase_b = {}
     for pb in ("device", "host"):
         for rep in range(2):
             eng = CudaMszipEngine(device, phase_b=pb)
@@ -473,11 +571,18 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock):
               f"one call: {len(corpus) / dt / 1e6:.1f} MB/s warm; phases "
               "(ms): " + ", ".join(f"{k} {v:.3f}"
                                    for k, v in sorted(eng.timings.items())))
+        phase_b[pb] = eng.timings
         if pb == "device":
             k2_launches = cr.LAUNCHES["cuda"] if device.type == "cuda" \
                 else cr.LAUNCHES["plain"]
     if k2_launches < 1:
         raise AssertionError("K2 never launched on the main path")
+    dev_b = phase_b["device"]["k2_ms"] + phase_b["device"]["bytes_pull_ms"]
+    host_b = phase_b["host"]["trace_pull_ms"] + \
+        phase_b["host"]["host_resolve_ms"]
+    print(f"phase B, {len(folders)} folders: device k2_ms + bytes_pull_ms "
+          f"{dev_b:.3f} ms, host trace_pull_ms + host_resolve_ms "
+          f"{host_b:.3f} ms")
     clock.lap("6 CudaMszipEngine, four folders")
     return [
         entry("k1_inflate", "inflate.cu",
@@ -1031,12 +1136,126 @@ def time_k34(reps=4):
               + f"; ptxas {report.get(name + '_kernel')}", flush=True)
 
 
+def time_k12(reps=4):
+    """``python3 chip_smoke.py --time-k12``: K1 on one bench MSZIP folder
+    and on the whole cabinet, and K2 on the whole cabinet (phase 4's
+    launches), each held to its plain version, with the kernels built from
+    this checkout: K1's whole-cabinet time ``reps`` times, K2's passes, the
+    ptxas lines and SASS summaries of both."""
+    import torch
+
+    from libmspack_tpu_torch.ops import cuda_inflate as ci
+
+    device = torch.device("cuda")
+    build_report(time.perf_counter(), DECODERS[:3])
+    corpus, _, folders = mszip_folders(CORPUS_MB["mszip"])
+    fcases = folder_cases(folders[:1])
+    (tok, _, cnt), _, e1, ms, pms = k1_compare(fcases, device, ci.FRAME_MAX)
+    print(f"K1 one folder ({len(fcases)} frames): kernel {ms:.3f} ms (best "
+          f"of 3), plain {pms:.1f} ms, max abs err {e1}", flush=True)
+    k1_symbols(tok, cnt, ms)
+    allc = folder_cases(folders)
+    s, lens = ci.pack_streams([c.stream for c in allc])
+    hists = torch.tensor([c.hist for c in allc], dtype=torch.int32)
+    sd, ld, hd = (t.to(device) for t in (s, lens, hists))
+    times = [timed(lambda: ci.inflate_phase_a(sd, ld, hd), device)[1]
+             for _ in range(reps)]
+    print(f"K1 whole cabinet ({len(allc)} frames): ms " + ", ".join(
+        f"{t:.3f}" for t in times), flush=True)
+    tok, litw, cnt = (t.cpu() for t in ci.inflate_phase_a(sd, ld, hd))
+    sizes, flags = chain_layout(folders)
+    (ob, _), e2, ms, pms, passes = k2_compare(
+        tok, litw, cnt[2].contiguous(), sizes, flags, device)
+    if e1 or e2 or bytes(ob.numpy()) != corpus:
+        raise AssertionError(f"K1 or K2 differ: max abs err {e1}, {e2}")
+    k2_work(cnt[2].numpy(), folders, len(corpus))
+    print(f"K2 whole cabinet ({len(allc)} frames, {len(folders)} chains): "
+          f"kernel {ms:.3f} ms (best of 3; pass 1, pass 2: {passes}), plain "
+          f"{pms:.1f} ms, equal", flush=True)
+
+
+def diag_k1():
+    """``python3 chip_smoke.py --diag-k1``: where K1's time goes. K1 alone
+    on one bench MSZIP folder, six launches; then ``inflate.cu`` built
+    with -DDC_CYCLES (deflate_core.cuh), whose counts rows 4-7 carry each
+    warp's clock64 cycles in all, in literal runs and in block headers, and
+    the literals of those runs, on one folder and on the whole cabinet:
+    the slowest warp's parts; then device phase B's pull, 96 MiB into
+    pageable memory (``.cpu()``) and into page-locked memory (``copy_``),
+    twice each."""
+    import ctypes
+    import os
+
+    import numpy as np
+    import torch
+
+    from libmspack_tpu_torch import kernels
+    from libmspack_tpu_torch.ops import cuda_inflate as ci
+
+    device = torch.device("cuda")
+    _, _, folders = mszip_folders(CORPUS_MB["mszip"])
+    batches = {}
+    for name, fols in (("one folder", folders[:1]), ("whole cabinet", folders)):
+        cases = folder_cases(fols)
+        s, lens = ci.pack_streams([c.stream for c in cases])
+        hists = torch.tensor([c.hist for c in cases], dtype=torch.int32)
+        batches[name] = [t.to(device) for t in (s, lens, hists)]
+    sd, ld, hd = batches["one folder"]
+    ms = [timed(lambda: ci.inflate_phase_a(sd, ld, hd), device)[1]
+          for _ in range(6)]
+    print("K1 one folder ms " + " ".join(f"{m:.3f}" for m in ms), flush=True)
+    src = os.path.join(kernels.CSRC, "inflate.cu")
+    tag = kernels.source_tag([src, os.path.join(kernels.CSRC,
+                                                "deflate_core.cuh")])
+    so = os.path.join(kernels.BUILD_DIR, f"k1_cycles_{tag}.so")
+    if not os.path.exists(so):
+        kernels.compile_to([kernels.nvcc_path()] + kernels.NVCC_FLAGS
+                           + ["-DDC_CYCLES", "-shared", src], so)
+    fn = ctypes.CDLL(so).msp_k1_inflate
+    fn.argtypes = kernels._SIGNATURES["msp_k1_inflate"]
+    for name, (s, lens, hists) in batches.items():
+        L = s.shape[0]
+        tok = torch.empty((L, ci.FRAME_MAX), dtype=torch.int32, device=device)
+        litw = torch.empty_like(tok)
+        cnt = torch.empty((8, L), dtype=torch.int32, device=device)
+        for _ in range(2):
+            rc = fn(s.data_ptr(), s.stride(0), lens.data_ptr(),
+                    hists.data_ptr(), L, tok.data_ptr(), litw.data_ptr(),
+                    ci.FRAME_MAX, cnt.data_ptr(), ci.K1_WARPS,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"K1 (DC_CYCLES): CUDA error {rc}")
+        c = cnt.cpu().numpy().astype(np.int64)
+        lits, mats = deflate_mix(tok.cpu().numpy(), c[2])
+        i = int(c[4].argmax())
+        print(f"K1 cycles, {name}: slowest warp {c[4, i]} cycles; literal "
+              f"runs {c[5, i]} for {c[7, i]} literals "
+              f"({c[5, i] / max(1, c[7, i]):.1f} a literal); block headers "
+              f"{c[6, i]}; the rest {c[4, i] - c[5, i] - c[6, i]} for "
+              f"{mats[i]} matches and {lits[i] - c[7, i]} other literals; "
+              f"all warps {c[5].sum() / max(1, c[7].sum()):.1f} cycles a "
+              f"literal in literal runs", flush=True)
+    x = torch.randint(0, 255, (96 * MB,), dtype=torch.uint8, device=device)
+    pinned = torch.empty(x.numel(), dtype=torch.uint8, pin_memory=True)
+    for name, pull in (("pageable", lambda: x.cpu()),
+                       ("page-locked", lambda: pinned.copy_(x))) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pull()
+        torch.cuda.synchronize()
+        print(f"96 MiB pull into {name} memory: "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--time-k34"]):
-        print("usage: chip_smoke.py [--time-k34]", file=sys.stderr)
+    modes = {"--time-k12": time_k12, "--time-k34": time_k34,
+             "--diag-k1": diag_k1}
+    if argv and (len(argv) > 1 or argv[0] not in modes):
+        print("usage: chip_smoke.py [--time-k12 | --time-k34 | --diag-k1]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1044,7 +1263,7 @@ def main(argv=None) -> int:
         return 1
     print(card_line())
     if argv:
-        time_k34()
+        modes[argv[0]]()
         return 0
     result = run("cuda")
     print(json.dumps(result))

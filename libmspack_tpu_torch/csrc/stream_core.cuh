@@ -1,11 +1,13 @@
-// What the LZX and Quantum cores (lzx_core.cuh, qtm_core.cuh) share: the
-// warp steps, written once for the kernels (K3, K4) and their g++ twins,
-// and the word-wide bit reader.
+// What the kernels' cores (deflate_core.cuh, resolve_core.cuh,
+// lzx_core.cuh, qtm_core.cuh) share: the warp steps, written once for the
+// kernels (K1-K4) and their g++ twins, and the MSB-first word-wide bit
+// reader of LZX and Quantum.
 //
-// A K3 or K4 launch runs one warp per stream. All 32 threads run the
-// decoder's control flow in lockstep on identical values (the coder, the
-// bit cursor and the other hot scalars, kept in registers), so the warp
-// never diverges; the stream's tables and models lie in shared memory. A
+// A K1, K3 or K4 launch runs one warp per stream, K2's pass 1 one warp per
+// frame. All 32 threads run the decoder's control flow in lockstep on
+// identical values (the coder, the bit cursor and the other hot scalars,
+// kept in registers), so the warp never diverges; the stream's tables and
+// models lie in shared memory. A
 // warp step splits rows over lanes: each lane's share is a function of its
 // lane index, written as a lambda of `lane`. On the device each thread
 // evaluates it for its own lane and the intrinsics (__ballot_sync,
@@ -17,7 +19,8 @@
 // Shared memory is written lane by lane (each lane its own rows) or by
 // lane 0 alone (warp::leader), and a warp::sync() separates every write
 // from another lane's read of it, and every read from another lane's later
-// write. Global stores of results are lane 0's.
+// write. Global stores of results are lane 0's, but for rows the lanes
+// split between them.
 #pragma once
 
 #include <stdint.h>
@@ -138,6 +141,41 @@ SC_FN int clz32(uint32_t x) {
   return __clz((int)x);
 #else
   return x ? __builtin_clz(x) : 32;
+#endif
+}
+
+// For each lane, the mask of the lanes whose x equals its own.
+template <class T>
+SC_FN Lanes<uint32_t> match_any(const Lanes<T>& x) {
+  Lanes<uint32_t> r;
+#ifdef __CUDA_ARCH__
+  r.v[0] = __match_any_sync(ALL, x.v[0]);
+#else
+  for (int l = 0; l < 32; l++) {
+    uint32_t m = 0;
+    for (int k = 0; k < 32; k++) m |= (x.v[k] == x.v[l] ? 1u : 0u) << k;
+    r.v[l] = m;
+  }
+#endif
+  return r;
+}
+
+SC_FN int popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// The low `bits` bits of x in reverse order (1 <= bits <= 32).
+SC_FN uint32_t brev(uint32_t x, int bits) {
+#ifdef __CUDA_ARCH__
+  return __brev(x) >> (32 - bits);
+#else
+  uint32_t r = 0;
+  for (int k = 0; k < bits; k++) r |= ((x >> k) & 1u) << (bits - 1 - k);
+  return r;
 #endif
 }
 

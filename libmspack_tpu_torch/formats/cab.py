@@ -629,14 +629,15 @@ class CabDecompressor:
             return
 
         # fast paths: decode the whole folder once (native thread pool or
-        # the CUDA kernels), then serve every file from the cache
+        # the CUDA kernels), then serve every file from the cache. A file
+        # that ends past the decoded bytes goes to the scalar path, whose
+        # codec raises the reference's error for it.
         if not self.salvage:
             folder_bytes = self._folder_bytes(fol)
-            if folder_bytes is not None:
+            if folder_bytes is not None and \
+                    file.offset + filelen <= len(folder_bytes):
                 sink = output if isinstance(output, Sink) else FileSink(output)
                 try:
-                    if file.offset + filelen > len(folder_bytes):
-                        raise DecrunchError("file beyond decoded folder")
                     sink.write(folder_bytes[file.offset:
                                             file.offset + filelen])
                     return

@@ -10,12 +10,13 @@ sources, so an edit rebuilds and an unchanged tree reuses the last build.
 Nothing here runs at import time: this module imports on hosts without a
 CUDA toolkit, and only ``lib()`` needs one.
 
-``host_twin()``, ``host_twin_lzx()`` and ``host_twin_qtm()`` build the
-per-stream cores (``deflate_core.cuh``, ``lzx_core.cuh``,
-``qtm_core.cuh``) with g++ instead, for the tests:
-the same C++ the kernels run, on the CPU, the warp steps of K3 and K4
-evaluated lane by lane (``stream_core.cuh``). Each twin is keyed by the
-sha256 of its header and the headers it includes.
+``host_twin()``, ``host_twin_resolve()``, ``host_twin_lzx()`` and
+``host_twin_qtm()`` build the kernels' cores (``deflate_core.cuh``,
+``resolve_core.cuh``, ``lzx_core.cuh``, ``qtm_core.cuh``) with g++
+instead, for the tests: the same C++ the kernels run, on the CPU, the warp
+steps evaluated lane by lane (``stream_core.cuh``) and K2's block steps
+thread by thread. Each twin is keyed by the sha256 of its header and the
+headers it includes.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "msp_k1_inflate": [_P, _I64, _P, _P, _I, _P, _P, ctypes.c_int32, _P,
                        _I, _P],
-    "msp_k2_resolve": [_P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P],
+    "msp_k2_pass1": [_P, _P, _I64, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "msp_k2_pass2": [_P, _P, _P, _P, _P, _I, _P, _P],
     "msp_k3_lzx": [_P, _I64, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                    ctypes.c_int32, _P, _P],
     "msp_k4_qtm": [_P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_int32,
@@ -213,11 +215,32 @@ def _twin(header: str, define: str, includes=()):
 
 
 def host_twin():
-    """The DEFLATE core's twin: ``dc_inflate_host``, K1's launch."""
-    handle = _twin("deflate_core.cuh", "DEFLATE_CORE_HOST_TWIN")
+    """The DEFLATE core's twin: ``dc_inflate_host``, K1's launch, and the
+    table decode (``dc_table_decode``) and bit reader (``dc_read_bits``)
+    alone."""
+    handle = _twin("deflate_core.cuh", "DEFLATE_CORE_HOST_TWIN",
+                   ["stream_core.cuh"])
     handle.dc_inflate_host.argtypes = [_P, _I64, _P, _P, _I, _P, _P,
                                        ctypes.c_int32, _P]
     handle.dc_inflate_host.restype = ctypes.c_int
+    handle.dc_table_decode.argtypes = [_P, _I, _I, _P, _I64, _I, _P, _P]
+    handle.dc_table_decode.restype = ctypes.c_int
+    handle.dc_read_bits.argtypes = [_P, _I64, _P, _I, _P, _P]
+    handle.dc_read_bits.restype = None
+    return handle
+
+
+def host_twin_resolve():
+    """The resolve core's twin: ``rs_resolve_host`` (K2's two passes, one
+    after the other) and ``rs_pass1_host`` (pass 1 alone)."""
+    handle = _twin("resolve_core.cuh", "RESOLVE_CORE_HOST_TWIN",
+                   ["stream_core.cuh"])
+    handle.rs_resolve_host.argtypes = [_P, _P, _I64, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _P, _P, _P]
+    handle.rs_resolve_host.restype = ctypes.c_int
+    handle.rs_pass1_host.argtypes = [_P, _P, _I64, _P, _P, _P, _P, _I, _P,
+                                     _P]
+    handle.rs_pass1_host.restype = ctypes.c_int
     return handle
 
 

@@ -44,10 +44,9 @@ BITLEN_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
 FIXED_LIT_LENS = [8] * 144 + [9] * 112 + [7] * 24 + [8] * 8
 FIXED_DIST_LENS = [5] * 32  # codes 30/31 exist but are invalid on use
 
-# threads per block of the K1 launch: small blocks spread a few hundred
-# lanes over more SMs (whole 3072-frame cabinet on an H100 at 700 W:
-# 2.32 ms at 8 threads per block, 3.25 ms at 32; PERF.md)
-K1_THREADS = 8
+# warps per block of the K1 launch, one stream per warp: small blocks
+# spread a few hundred lanes over more SMs (swept by chip_smoke.py; PERF.md)
+K1_WARPS = 1
 
 LAUNCHES = {"cuda": 0, "plain": 0}
 
@@ -124,10 +123,11 @@ def _check_batch(streams, lens, hists):
 
 
 def inflate_phase_a(streams, lens, hists, *, tcap=FRAME_MAX, device=None,
-                    threads=K1_THREADS):
+                    warps=K1_WARPS):
     """Phase A on a batch (see the module docstring). ``device`` moves the
     batch there first; by default it runs where ``streams`` lies. A CUDA
-    tensor launches K1 (``threads`` per block) or raises."""
+    tensor launches K1 (one warp per stream, ``warps`` per block) or
+    raises."""
     if device is not None:
         dev = resolve_device(device)
         streams, lens, hists = (t.to(dev) for t in (streams, lens, hists))
@@ -147,7 +147,7 @@ def inflate_phase_a(streams, lens, hists, *, tcap=FRAME_MAX, device=None,
         rc = lib.msp_k1_inflate(
             streams.data_ptr(), streams.stride(0), lens.data_ptr(),
             hists.data_ptr(), L, tok.data_ptr(), litw.data_ptr(), tcap,
-            cnt.data_ptr(), threads, torch.cuda.current_stream().cuda_stream)
+            cnt.data_ptr(), warps, torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "K1 inflate")
     LAUNCHES["cuda"] += 1
     return tok, litw, cnt

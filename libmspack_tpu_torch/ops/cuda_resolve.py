@@ -9,9 +9,11 @@ before it, so its history is the bytes before it (back to its chain's
 first lane). The bytes of a lane and its count are what the TPU kernel
 gives; the layout is this module's.
 
-A CUDA tensor runs the hand-written kernel (``csrc/resolve.cu``); a CPU
-tensor runs ``resolve_frames_plain``, a per-token replay. ``LAUNCHES``
-counts both.
+A CUDA tensor runs the hand-written kernel (``csrc/resolve.cu``) in two
+passes: every lane at once into a scratch of uint16 values (bytes, and
+markers for bytes before the lane), then chain by chain into the bytes.
+A CPU tensor runs ``resolve_frames_plain``, a per-token replay, which both
+passes are held to. ``LAUNCHES`` counts both, once per call.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from .. import kernels
 from .cuda_inflate import TOK_MATCH
 
 LAUNCHES = {"cuda": 0, "plain": 0}
+# the most bytes a lane may hold: the TPU kernel's slot
+# (pallas_resolve.py:40-41) and MSZIP's frame
+LANE_MAX = 32768
 
 
 def _layout(out_lens, hist_flags):
@@ -37,15 +42,33 @@ def _layout(out_lens, hist_flags):
     return off, chains
 
 
-def resolve_frames_device(tok, litw, ntok, out_lens, hist_flags):
+def _chain_bytes(off, chains):
+    """Each lane's bytes before it in its chain, capped at 32768 (the
+    farthest a match reaches): int32 (L,)."""
+    first = np.repeat(off[chains[:-1]], np.diff(chains))
+    return np.minimum(off[:-1] - first, LANE_MAX).astype(np.int32)
+
+
+def _slots(lens):
+    """Each lane's slot in pass 1's scratch and the total, int64 (L+1,):
+    the lane sizes rounded up to 8 values (16 bytes), summed."""
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum((np.asarray(lens, np.int64) + 7) & ~7, out=off[1:])
+    return off
+
+
+def resolve_frames_device(tok, litw, ntok, out_lens, hist_flags, marks=None):
     """Resolve K1 traces into bytes where ``tok`` lies.
 
     tok, litw: int32 ``(L, T)`` lane-major traces; ntok: int32 ``(L,)``
     tokens per lane (K1's counts row 2), on the same device. out_lens and
-    hist_flags: per-lane sizes and chain flags (sequences or CPU tensors).
-    Returns ``(bytes uint8 (sum(out_lens),), counts int32 (L,))``; a lane's
-    count equals its size when its trace resolved to exactly that many
-    bytes, and is -1 when a match reached before its chain's start."""
+    hist_flags: per-lane sizes (each at most 32768) and chain flags
+    (sequences or CPU tensors). Returns ``(bytes uint8 (sum(out_lens),),
+    counts int32 (L,))``; a lane's count equals its size when its trace
+    resolved to exactly that many bytes, and is -1 when a match reached
+    before its chain's start. Bytes that no token writes are 0. On the
+    card, a list ``marks`` receives three CUDA events: before pass 1,
+    between the passes and after pass 2."""
     L = tok.shape[0]
     for name, t in (("tok", tok), ("litw", litw)):
         if t.dtype != torch.int32 or t.dim() != 2 or t.stride(1) != 1:
@@ -62,6 +85,8 @@ def resolve_frames_device(tok, litw, ntok, out_lens, hist_flags):
     flags = np.asarray(hist_flags, np.int32).reshape(-1)
     if lens.shape != (L,) or flags.shape != (L,):
         raise ValueError(f"out_lens and hist_flags need {L} entries")
+    if L and (int(lens.max()) > LANE_MAX or int(lens.min()) < 0):
+        raise ValueError(f"a lane size is outside 0..{LANE_MAX}")
     off, chains = _layout(lens, flags)
     if tok.device.type == "cpu":
         LAUNCHES["plain"] += 1
@@ -69,21 +94,40 @@ def resolve_frames_device(tok, litw, ntok, out_lens, hist_flags):
     if tok.device.type != "cuda":
         raise ValueError(f"unsupported device {tok.device}")
     dev = tok.device
-    lens_d = torch.from_numpy(lens).to(dev)
-    off_d = torch.from_numpy(off).to(dev)
-    chains_d = torch.from_numpy(chains).to(dev)
+    woff = _slots(lens)
+    lens_d, off_d, woff_d, avail_d, chains_d = (
+        torch.from_numpy(a).to(dev)
+        for a in (lens, off, woff, _chain_bytes(off, chains), chains))
+    # pass 1's values: 2 bytes per output byte (uint16 in int16's storage)
+    work = torch.empty(int(woff[-1]), dtype=torch.int16, device=dev)
     out = torch.empty(int(off[-1]), dtype=torch.uint8, device=dev)
     counts = torch.empty(L, dtype=torch.int32, device=dev)
     lib = kernels.lib()
     with torch.cuda.device(dev):
-        rc = lib.msp_k2_resolve(
+        stream = torch.cuda.current_stream().cuda_stream
+        _mark(marks)
+        rc = lib.msp_k2_pass1(
             tok.data_ptr(), litw.data_ptr(), tok.stride(0), ntok.data_ptr(),
-            lens_d.data_ptr(), off_d.data_ptr(), chains_d.data_ptr(),
-            len(chains) - 1, out.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "K2 resolve")
+            lens_d.data_ptr(), woff_d.data_ptr(), avail_d.data_ptr(), L,
+            int(lens.max()) if L else 0, work.data_ptr(), counts.data_ptr(),
+            stream)
+        kernels.check(rc, "K2 pass 1")
+        _mark(marks)
+        rc = lib.msp_k2_pass2(
+            work.data_ptr(), woff_d.data_ptr(), lens_d.data_ptr(),
+            off_d.data_ptr(), chains_d.data_ptr(), len(chains) - 1,
+            out.data_ptr(), stream)
+        kernels.check(rc, "K2 pass 2")
+        _mark(marks)
     LAUNCHES["cuda"] += 1
     return out, counts
+
+
+def _mark(marks):
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
 
 
 def resolve_frames_plain(tok, litw, ntok, out_lens, hist_flags):

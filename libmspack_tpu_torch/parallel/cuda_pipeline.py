@@ -42,10 +42,11 @@ from ..ops import cuda_resolve as cr
 
 FRAME_MAX = ci.FRAME_MAX
 # Device memory for one launch's trace: tok + litw are 8 bytes per token,
-# and a lane holds up to one token per output byte, so 1 GiB holds 4096
-# MSZIP frames or 128 MiB of LZX output. Two launches are in flight at once.
+# and a lane holds up to one token per output byte, so 1 GiB holds 128 MiB
+# of LZX output. An MSZIP lane adds K2's scratch, 2 bytes per output byte:
+# 1 GiB holds 3276 frames. Two launches are in flight at once.
 TRACE_BUDGET = 1 << 30
-MAX_LANES = TRACE_BUDGET // (8 * FRAME_MAX)
+MAX_LANES = TRACE_BUDGET // ((8 + 2) * FRAME_MAX)
 
 
 def window_tails(refs, window_bits):
@@ -145,7 +146,13 @@ class CudaMszipEngine(_Engine):
         t0 = time.perf_counter()
         offsets = np.zeros(len(folders) + 1, np.int64)
         np.cumsum([sum(s) for _, s in folders], out=offsets[1:])
-        out = np.empty(int(offsets[-1]), np.uint8)
+        n = int(offsets[-1])
+        if self.phase_b == "device" and self.device.type == "cuda":
+            # page-locked, so that device phase B's bytes land in place at
+            # the link's rate (a pull into pageable memory runs ~20x slower)
+            out = torch.empty(n, dtype=torch.uint8, pin_memory=True).numpy()
+        else:
+            out = np.empty(n, np.uint8)
         failed = set()
         # two-deep pipeline: batch k+1's pack, upload and K1 are queued on
         # the other stream before batch k's counts, trace pull and resolve
@@ -292,11 +299,8 @@ class CudaMszipEngine(_Engine):
         ob, counts = cr.resolve_frames_device(h["tok"], h["litw"],
                                               h["cnt"][2], lens, flags)
         e1 = self._mark()
-        obh = ob.cpu().numpy()
         counts = counts.cpu().numpy()
-        e2 = self._mark()
-        self._add("k2_ms", e0, e1)
-        self._add("bytes_pull_ms", e1, e2)
+        host = torch.from_numpy(out)
         pos = 0
         for fi, l0, nf in runs:
             size = int(offsets[fi + 1] - offsets[fi])
@@ -304,8 +308,11 @@ class CudaMszipEngine(_Engine):
                 self.declines["device resolve count mismatch"] += 1
                 failed.add(fi)
             else:
-                out[offsets[fi]:offsets[fi + 1]] = obh[pos:pos + size]
+                host[offsets[fi]:offsets[fi + 1]].copy_(ob[pos:pos + size])
             pos += size
+        e2 = self._mark()
+        self._add("k2_ms", e0, e1)
+        self._add("bytes_pull_ms", e1, e2)
 
 
 class _StreamEngine(_Engine):

@@ -2,8 +2,9 @@
 
 A probe times a mechanism only if the compiled kernel still performs it:
 a sweep whose result the compiler can predict may be folded into one load
-or dropped. K3 and K4 keep their tables in shared memory, so their
-per-symbol loads should be LDS, not LDG or local LDL. For each kernel of
+or dropped. K1, K3 and K4 keep their tables in shared memory, and K2 its
+work buffer and window, so their per-symbol and per-token loads should be
+LDS, not LDG or local LDL. For each kernel of
 KERNELS in the library ``kernels.lib()`` builds, this prints its
 instruction count, its loads and stores by memory space, its compares and
 selects, its warp votes and shuffles, and its backward branches (loops),
@@ -25,7 +26,8 @@ from collections import Counter
 
 from .. import kernels
 
-KERNELS = ("k3_lzx_kernel", "k4_qtm_kernel",
+KERNELS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
+           "k3_lzx_kernel", "k4_qtm_kernel",
            "p1_sweep_kernel", "p1_vec_kernel", "p2_skel_kernel",
            "p3_copy_kernel", "p5_dyngather_kernel", "p5_masksum_kernel",
            "p5_symbol_kernel", "p6_masksum_kernel", "p6_symbol_kernel",

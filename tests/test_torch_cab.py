@@ -11,10 +11,12 @@ cabinets byte for byte, and a subprocess drives every port path without
 importing jax, the JAX package or bench.py.
 """
 import os
+import struct
 import subprocess
 import sys
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,6 +131,37 @@ def test_corrupt_frame_takes_counted_native_redecode():
     assert issubclass(errors[1], lt.MSPackError)
     assert errors[0].__name__ == errors[1].__name__
     assert d.cuda_engine.declines["flagged lane"] == 1
+
+
+@pytest.mark.parametrize("compression", ["mszip", "lzx", "quantum"])
+def test_file_past_decoded_folder_gets_scalar_error(compression):
+    """A file whose offset + length passes the num_blocks * 32768 test but
+    ends past the bytes the folder decodes to: every engine serves the
+    first file and raises the scalar codec's error class for the second."""
+    rng = np.random.RandomState(3)
+    first = rng.randint(0, 8, 30000).astype(np.uint8).tobytes()
+    second = rng.randint(0, 8, 10000).astype(np.uint8).tobytes()
+    blob = bytearray(cab_c.write_cab(
+        files=[("a.bin", first), ("b.bin", second)], compression=compression))
+    # the second CFFILE's length: stretched to end at 60000 (two blocks
+    # allow 65536)
+    at = 0x24 + 8 + 16 + len("a.bin") + 1
+    assert struct.unpack_from("<I", blob, at)[0] == len(second)
+    struct.pack_into("<I", blob, at, 60000 - len(first))
+    blob = bytes(blob)
+    errors = {}
+    for engine, kw in (("scalar", {}), ("native", {}),
+                       ("cuda", {"device": "cpu"})):
+        d = lt.create_cab_decompressor(engine=engine, **kw)
+        a, b = d.open(blob).files
+        sink = BytesSink()
+        d.extract(a, sink)
+        assert sink.getvalue() == first, engine
+        with pytest.raises(lt.MSPackError) as info:
+            d.extract(b, BytesSink())
+        errors[engine] = type(info.value)
+    assert errors["native"] is errors["scalar"]
+    assert errors["cuda"] is errors["scalar"]
 
 
 def test_none_folder_takes_scalar_path():
