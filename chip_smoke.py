@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-k12   # K1 and K2 alone (time_k12)
     python3 chip_smoke.py --time-k34   # K3 and K4 alone (time_k34)
+    python3 chip_smoke.py --time-oab   # the OAB files alone (time_oab)
     python3 chip_smoke.py --diag-k1    # where K1's time goes (diag_k1)
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
@@ -59,11 +60,23 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     folders through CudaQtmEngine in one call;
 15. the probe tools P1-P6 (libmspack_tpu_torch.tools): each tool's main()
     at its own shapes, as ``python -m libmspack_tpu_torch.tools.<name>``
-    runs it, then every run of a probe kernel against its plain version.
+    runs it, then every run of a probe kernel against its plain version;
+16. OAB on K3 (``oab_inputs``): a 64 MiB full download in 64 KiB blocks
+    (1024 lanes at window 2^17), a 64 MiB incremental patch against a
+    64 MiB base, and a 32 MiB full download in 4 MiB blocks (window 2^22):
+    K3 against its plain version on each file's launch, then each file
+    through create_oab_decompressor(engine="cuda", strict=True) cold and
+    warm beside engine="native": bytes equal, one engine call per window,
+    no decline; the engine's phase times and the driver's host CRC check
+    (crc_ms), and the device CRC op (ops/crc32.py) on the file's blocks
+    beside host CRC-32;
+17. a 1 MiB SZDD file from lzss_c through create_szdd_decompressor(
+    engine="cuda") (LZSS as device tensor ops) beside engine="native".
 
 Each kernel's launch count is set to 0 just before its main path runs and
 read just after (for a probe, its tool's main(), where a kernel replayed
-from a CUDA graph counts once per replay). The next-to-last line is
+from a CUDA graph counts once per replay; K3's is its CAB LZX path's plus
+the OAB path's, each file's counted alone). The next-to-last line is
 a JSON object with each kernel's launches on the main path, its largest
 difference from the plain version, its time, the plain version's, and its
 bound: the larger of the bytes it must move over the card's memory rate
@@ -118,6 +131,103 @@ def build_cab(corpus: bytes, compression: str) -> bytes:
         folders.append(cab_c.FolderSpec(
             [(f"f{i}.bin", corpus[i : i + fsz])], compression))
     return cab_c.write_cab(folders=folders)
+
+
+def _encode_blocks(jobs, threads=8):
+    """``native.lzx_encode(data, window_bits, is_delta=True, ref_data=ref)``
+    of each ``(data, window_bits, ref)``, on threads (the encoder leaves
+    the GIL), in order: what ``compress/lzx_e.compress`` gives."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libmspack_tpu_torch import native
+
+    def one(job):
+        data, wb, ref = job
+        return native.lzx_encode(data, wb, is_delta=True, ref_data=ref)[0]
+
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(one, jobs))
+
+
+def _window_bits(size):
+    wb = 17
+    while wb < 25 and (1 << wb) < size:
+        wb += 1
+    return wb
+
+
+def build_oab(data: bytes, block_size: int = 65536) -> bytes:
+    """``compress/oab_c.write_oab(data, block_size)``, the same bytes, with
+    the blocks encoded on threads."""
+    from libmspack_tpu_torch.formats.oab import crc32_raw
+
+    chunks = [data[i:i + block_size]
+              for i in range(0, max(len(data), 1), block_size)]
+    streams = _encode_blocks([(c, _window_bits(len(c)), b"")
+                              for c in chunks])
+    out = bytearray()
+    for v in (3, 1, block_size, len(data)):
+        out += v.to_bytes(4, "little")
+    for c, s in zip(chunks, streams):
+        for v in (1, len(s), len(c), crc32_raw(c)):
+            out += v.to_bytes(4, "little")
+        out += s
+    return bytes(out)
+
+
+def build_oab_patch(target: bytes, base: bytes,
+                    block_size: int = 65536) -> bytes:
+    """``compress/oab_c.write_oab_patch(target, base, block_size)``, the
+    same bytes, with the blocks encoded on threads."""
+    from libmspack_tpu_torch.formats.oab import crc32_raw
+
+    jobs, bpos = [], 0
+    for i in range(0, max(len(target), 1), block_size):
+        chunk = target[i:i + block_size]
+        ssize = min(block_size, len(base) - bpos) if bpos < len(base) else 0
+        ref = base[bpos:bpos + ssize]
+        bpos += ssize
+        jobs.append((chunk, _window_bits(((ssize + 32767) & ~32767)
+                                         + len(chunk)), ref))
+    streams = _encode_blocks(jobs)
+    out = bytearray()
+    for v in (3, 2, block_size, len(base), len(target), crc32_raw(base),
+              crc32_raw(target)):
+        out += v.to_bytes(4, "little")
+    for (chunk, _, ref), s in zip(jobs, streams):
+        for v in (len(s), len(chunk), len(ref), crc32_raw(chunk)):
+            out += v.to_bytes(4, "little")
+        out += s
+    return bytes(out)
+
+
+def oab_lanes(blob: bytes, want: bytes, base: bytes | None = None):
+    """The LZX blocks of an OAB file (a patch against ``base`` when given)
+    as K3 cases, as the OAB driver hands them to ``CudaLzxEngine``: each
+    block's stream, size, window, DELTA reference data and its bytes of
+    ``want``. Returns ``{window_bits: [LzxCase]}``."""
+    from libmspack_tpu_torch import lzx_edge_cases as le
+
+    groups: dict[int, list] = {}
+    p, out, bpos = (16, 0, 0) if base is None else (0x1C, 0, 0)
+    while out < len(want):
+        f = [int.from_bytes(blob[p + i:p + i + 4], "little")
+             for i in (0, 4, 8, 12)]
+        if base is None:
+            flags, csize, dsize, _ = f
+            ref, wb = b"", _window_bits(dsize)
+        else:
+            csize, dsize, ssize, _ = f
+            flags, ref = 1, base[bpos:bpos + ssize]
+            bpos += ssize
+            wb = _window_bits(((ssize + 32767) & ~32767) + dsize)
+        if flags:
+            groups.setdefault(wb, []).append(le.LzxCase(
+                "oab block", blob[p + 16:p + 16 + csize], dsize, wb, True,
+                ref, want[out:out + dsize]))
+        p += 16 + csize
+        out += dsize
+    return groups
 
 
 def bench_folders(corpus, compression):
@@ -326,11 +436,13 @@ class Clock:
 
 
 def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
-        chm_mb=16, qtm_mb=24, reps=4):
+        chm_mb=16, qtm_mb=24, reps=4, oab_mb=64, oab_big_mb=32,
+        oab_big_block=4 << 20, szdd_bytes=1 << 20):
     """All phases after the device check; returns the kernels' JSON.
 
     ``run("cpu", total_mb=6, edge_frame=4096, lzx_big=1 << 17, chm_mb=2,
-    qtm_mb=1, reps=2)`` rehearses every phase on the CPU, with the
+    qtm_mb=1, reps=2, oab_mb=1, oab_big_mb=1, oab_big_block=1 << 19,
+    szdd_bytes=1 << 16)`` rehearses every phase on the CPU, with the
     kernels' plain versions, before a run on the card."""
     import threading
 
@@ -350,10 +462,18 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     native.lib()   # raises if the host engine did not build
     clock.lap("build")
     entries = mszip_phases(device, total_mb, edge_frame, reps, clock)
-    entries.append(lzx_phases(device, total_mb, lzx_big, chm_mb, reps,
-                              clock))
+    k3 = lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock)
+    entries.append(k3)
     entries.append(qtm_phases(device, qtm_mb, lzx_big, reps, clock))
     entries.extend(probe_phases(device, clock))
+    # K3's entry gains the OAB path's launches and comparisons
+    oab_launches, e3 = oab_phases(device, oab_mb, oab_big_mb, oab_big_block,
+                                  min(reps, 3), clock)
+    print(f"K3 launches: CAB LZX path {k3['launches']}, OAB path "
+          f"{oab_launches}")
+    k3["launches"] += oab_launches
+    k3["max_abs_err"] = max(k3["max_abs_err"], e3)
+    szdd_phase(device, szdd_bytes, min(reps, 3), clock)
     bad = [e["name"] for e in entries if e["max_abs_err"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: "
@@ -1037,6 +1157,166 @@ def qtm_phases(device, total_mb, edge_big, reps, clock):
                  k4_launches, e4, k4_ms, k4_plain_ms, k4_bytes, k4_chain)
 
 
+def oab_inputs(oab_mb, big_mb, big_block):
+    """The OAB phase's three files: ``(name, file, bytes it decodes to,
+    base or None)``. A full download of ``oab_mb`` MiB of the bench corpus
+    in oab_c's 64 KiB blocks (window 2^17: one K3 lane a block); an
+    incremental patch of as much against a base of as much, the target
+    being the base with 16 bytes changed in every 4 KiB (64 KiB blocks,
+    each with 64 KiB of reference data: window 2^17); a full download of
+    ``big_mb`` MiB in ``big_block`` blocks (4 MiB: window 2^22, which the
+    JAX ``tpu`` engine declines to the host)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    base = build_corpus(oab_mb * MB)
+    rng = np.random.RandomState(11)
+    target = np.frombuffer(base, np.uint8).copy()
+    at = np.arange(0, len(base) - 16, 4096) + rng.randint(0, 4080,
+                                                          len(base) // 4096)
+    for k in range(16):
+        target[at + k] = rng.randint(0, 256, len(at))
+    target = target.tobytes()
+    big = build_corpus(big_mb * MB)
+    files = [("full 64 KiB blocks", build_oab(base), base, None),
+             ("patch 64 KiB blocks", build_oab_patch(target, base), target,
+              base),
+             (f"full {big_block >> 10} KiB blocks",
+              build_oab(big, big_block), big, None)]
+    print(f"OAB inputs built in {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"{n}: {len(w)} bytes in {len(f)}" for n, f, w, _ in files))
+    return files
+
+
+def oab_phases(device, oab_mb, big_mb, big_block, reps, clock):
+    """Phase 16 (OAB on K3): K3 against its plain version at each file's
+    launch (all its blocks of one window, one lane each, DELTA with the
+    reference data's budget), then each file through
+    create_oab_decompressor(engine="cuda", strict=True) cold and warm,
+    beside engine="native": bytes equal, K3 launched, every LZX block of a
+    window in one engine call, no decline (strict mode raises on one); the
+    engine's phase times and the CRC op's beside host CRC-32. Returns (K3
+    launches, largest difference from the plain version)."""
+    import torch
+
+    from libmspack_tpu_torch import create_oab_decompressor
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch.ops import crc32
+    from libmspack_tpu_torch.ops import cuda_lzx as cl
+
+    def k3_count():
+        return cl.LAUNCHES["cuda" if device.type == "cuda" else "plain"]
+
+    files = oab_inputs(oab_mb, big_mb, big_block)
+    clock.lap("16 OAB inputs")
+    err, launches = 0, 0
+    for name, blob, want, base in files:
+        groups = oab_lanes(blob, want, base)
+        for wb, cases in groups.items():
+            (tok, litw, cnt, _), e, ms, pms = k3_compare(cases, device)
+            err = max(err, e)
+            got = le.resolve(cases, tok.numpy(), litw.numpy(), cnt.numpy())
+            if got != [c.raw for c in cases]:
+                raise AssertionError(f"K3 OAB {name}: bytes differ")
+            print(f"K3 OAB {name}, window 2^{wb}: {len(cases)} lanes, "
+                  f"{int(cnt[2].sum())} tokens, kernel {ms:.3f} ms "
+                  f"({sum(c.out_len for c in cases) / ms / 1e3:.1f} MB/s), "
+                  f"plain {pms:.1f} ms, equal", flush=True)
+            del tok, litw, cnt
+
+        def decode(d):
+            if base is None:
+                return d.decompress_bytes(blob)
+            return d.decompress_incremental_bytes(blob, base)
+
+        cl.LAUNCHES["cuda"] = cl.LAUNCHES["plain"] = 0
+        runs, uploads = [], []
+        for _ in range(reps):
+            d = create_oab_decompressor(engine="cuda", device=device,
+                                        strict=True)
+            t0 = time.perf_counter()
+            out = decode(d)
+            runs.append(time.perf_counter() - t0)
+            uploads.append(d.cuda_engine.timings["upload_ms"])
+            if out != want:
+                raise AssertionError(f"OAB {name}: bytes differ")
+            nblocks = sum(len(c) for c in groups.values())
+            if d.stats["engine calls"] != len(groups) or \
+                    d.stats["device blocks"] != nblocks or \
+                    sum(d.cuda_engine.declines.values()):
+                raise AssertionError(f"OAB {name}: {dict(d.stats)}, "
+                                     f"declines {dict(d.cuda_engine.declines)}")
+        n = k3_count()
+        if n < 1:
+            raise AssertionError(f"K3 never launched on the OAB {name} path")
+        launches += n
+        mbs = [len(want) / t / 1e6 for t in runs]
+        print(f"engine=cuda OAB {name}: {nblocks} blocks, {len(groups)} "
+              f"engine call(s), {d.cuda_engine.lanes} lanes, cold "
+              f"{mbs[0]:.1f} MB/s, warm best {max(mbs[1:]):.1f} MB/s, K3 "
+              f"launches {n}; upload_ms of each run "
+              + ", ".join(f"{u:.3f}" for u in uploads))
+        print(f"engine=cuda OAB {name} phases of the last run (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                  {**d.cuda_engine.timings, **d.timings}.items())))
+        nat = []
+        for _ in range(reps):
+            d = create_oab_decompressor(engine="native")
+            t0 = time.perf_counter()
+            if decode(d) != want:
+                raise AssertionError(f"OAB {name} engine=native: bytes")
+            nat.append(len(want) / (time.perf_counter() - t0) / 1e6)
+        print(f"engine=native OAB {name}: cold {nat[0]:.1f} MB/s, warm best "
+              f"{max(nat[1:]):.1f} MB/s")
+        # the CRC op on this file's blocks beside host CRC-32
+        blocks = [c.raw for cs in groups.values() for c in cs]
+        for _ in range(2):
+            t = {}
+            t0 = time.perf_counter()
+            dev = crc32.crc32_blocks(blocks, device, timings=t)
+            op_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = [crc32.crc32_raw(b) for b in blocks]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if dev != host:
+            raise AssertionError(f"OAB {name}: the CRC op differs from "
+                                 "host CRC-32")
+        print(f"CRC OAB {name}: {len(blocks)} blocks, op {op_ms:.3f} ms ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(t.items()))
+              + f"), host zlib {host_ms:.3f} ms, equal", flush=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        clock.lap(f"16 OAB {name}")
+    return launches, err
+
+
+def szdd_phase(device, nbytes, reps, clock):
+    """Phase 17: an SZDD file of ``nbytes`` of the bench corpus from
+    ``lzss_c`` through create_szdd_decompressor(engine="cuda") (LZSS as
+    device tensor ops) cold and warm, beside engine="native": bytes
+    equal."""
+    from libmspack_tpu_torch import create_szdd_decompressor
+    from libmspack_tpu_torch.compress import lzss_c
+
+    t0 = time.perf_counter()
+    data = build_corpus(nbytes)
+    blob = lzss_c.szdd_compress(data)
+    print(f"SZDD: {len(data)} bytes in {len(blob)}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for engine in ("cuda", "native"):
+        mbs = []
+        for _ in range(reps):
+            kw = {"device": device} if engine == "cuda" else {}
+            d = create_szdd_decompressor(engine=engine, **kw)
+            t0 = time.perf_counter()
+            if d.decompress_bytes(blob) != data:
+                raise AssertionError(f"SZDD engine={engine}: bytes differ")
+            mbs.append(len(data) / (time.perf_counter() - t0) / 1e6)
+        print(f"engine={engine} SZDD: cold {mbs[0]:.1f} MB/s, warm best "
+              f"{max(mbs[1:]):.1f} MB/s")
+    clock.lap("17 SZDD")
+
+
 PROBE_TOOLS = ("micro_vec", "micro_skel", "micro_copy", "mosaic_probe",
                "micro_gather", "micro_gather2")
 
@@ -1247,15 +1527,47 @@ def diag_k1():
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
 
 
+def time_oab(reps=5, device="cuda", sizes=(64, 32, 4 << 20)):
+    """``python3 chip_smoke.py --time-oab``: phase 16's three OAB files
+    (``oab_inputs(*sizes)``) through create_oab_decompressor(engine="cuda",
+    strict=True), then engine="native", ``reps`` times each, bytes
+    checked; prints every run's MB/s and the last cuda run's phases (engine
+    and driver). To compare two checkouts' OAB paths on one card, unpack
+    each into a directory of its own and run this in each, in turns (A, B,
+    B, A)."""
+    from libmspack_tpu_torch import create_oab_decompressor
+
+    for name, blob, want, base in oab_inputs(*sizes):
+        for engine in ("cuda", "native"):
+            kw = {"device": device, "strict": True} if engine == "cuda" \
+                else {}
+            mbs = []
+            for _ in range(reps):
+                d = create_oab_decompressor(engine=engine, **kw)
+                t0 = time.perf_counter()
+                out = d.decompress_bytes(blob) if base is None else \
+                    d.decompress_incremental_bytes(blob, base)
+                mbs.append(len(want) / (time.perf_counter() - t0) / 1e6)
+                if out != want:
+                    raise AssertionError(f"OAB {name} engine={engine}: "
+                                         "bytes differ")
+            print(f"engine={engine} OAB {name}, MB/s of each run: "
+                  + ", ".join(f"{v:.1f}" for v in mbs), flush=True)
+            if engine == "cuda":
+                print(f"engine=cuda OAB {name} phases of the last run (ms): "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                          {**d.cuda_engine.timings, **d.timings}.items())))
+
+
 def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     modes = {"--time-k12": time_k12, "--time-k34": time_k34,
-             "--diag-k1": diag_k1}
+             "--time-oab": time_oab, "--diag-k1": diag_k1}
     if argv and (len(argv) > 1 or argv[0] not in modes):
-        print("usage: chip_smoke.py [--time-k12 | --time-k34 | --diag-k1]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--time-k12 | --time-k34 | --time-oab "
+              "| --diag-k1]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",

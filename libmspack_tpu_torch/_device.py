@@ -1,11 +1,44 @@
-"""The explicit device and engine of the port's entry points."""
+"""The explicit device, engine and strict mode of the port's entry points."""
 from __future__ import annotations
+
+import os
 
 import torch
 
-from .errors import ArgsError
+from .errors import ArgsError, FallbackError
 
 ENGINES = ("cuda", "native", "scalar")
+
+
+def strict_mode(strict=None) -> bool:
+    """A driver's strict mode: ``strict`` when given, else whether the
+    environment variable ``MSPACK_TPU_STRICT`` is set to a non-empty value
+    (the reference's switch, ``libmspack_tpu/formats/cab.py:225-229``)."""
+    if strict is None:
+        return bool(os.environ.get("MSPACK_TPU_STRICT"))
+    return bool(strict)
+
+
+def note_fallback(driver, path: str, reasons) -> None:
+    """Record that the device path ``path`` of ``driver`` declined, for
+    ``reasons`` (a string, or a mapping of reason to count as an engine's
+    ``declines`` holds them): ``driver.fallback_reasons[path]`` becomes
+    ``"FallbackError: <message>"``, as the reference's ``{path: "Exc:
+    msg"}``; under ``driver.strict`` the ``FallbackError`` is raised."""
+    if not isinstance(reasons, str):
+        reasons = ", ".join(f"{r} x{n}" if n > 1 else r
+                            for r, n in sorted(reasons.items()))
+    exc = FallbackError(path, reasons or "declined")
+    driver.fallback_reasons[path] = f"{type(exc).__name__}: {exc}"
+    if driver.strict:
+        raise exc
+
+
+def new_declines(engine, before) -> dict:
+    """The declines ``engine`` counted since ``before`` (a copy of its
+    ``declines`` taken earlier), by reason."""
+    return {r: n - before.get(r, 0) for r, n in engine.declines.items()
+            if n > before.get(r, 0)}
 
 
 def resolve_device(device) -> torch.device:

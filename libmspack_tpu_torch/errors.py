@@ -5,7 +5,8 @@ Mirrors the numeric error vocabulary of the reference public API
 libmspack find the same failure taxonomy, expressed as Python exceptions.
 
 Copied from ``libmspack_tpu/errors.py`` so that the port imports nothing
-of the JAX package; the copy differs in nothing else.
+of the JAX package; the copy differs only in ``FallbackError``, the port's
+strict-mode error.
 """
 from __future__ import annotations
 
@@ -82,6 +83,17 @@ class CrunchError(MSPackError):
 
 class DecrunchError(MSPackError):
     code = Err.DECRUNCH
+
+
+class FallbackError(DecrunchError):
+    """Strict mode: a device path declined and would have handed its work
+    to the host (the native engine or the scalar codecs). ``path`` names
+    the device path, ``reason`` the decline."""
+
+    def __init__(self, path: str, reason: str):
+        super().__init__(f"{path} declined: {reason}")
+        self.path = path
+        self.reason = reason
 
 
 _CODE_TO_EXC = {

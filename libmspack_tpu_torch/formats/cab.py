@@ -27,7 +27,11 @@ are the reference driver's. Engines:
   block). Salvage mode, fix-MSZIP mode on an MSZIP folder, NONE folders,
   a folder whose blocks cannot be collected (bad checksum, missing 'CK')
   and a folder the engine declines take the scalar path, which raises the
-  reference's error where there is one;
+  reference's error where there is one. The last two are noted in
+  ``fallback_reasons``; under strict mode (``strict=True``, or the
+  environment variable ``MSPACK_TPU_STRICT`` set, as in the reference)
+  they raise ``FallbackError`` instead, as does an MSZIP folder the engine
+  had to re-decode on the host;
 * ``"native"``: the multithreaded C++ engine (``native/``), as in the
   reference driver; ``"auto"`` is ``"native"`` when it builds, else
   ``"scalar"``;
@@ -40,7 +44,8 @@ from __future__ import annotations
 import os
 from typing import Callable, List, Optional
 
-from .._device import resolve_device, resolve_engine
+from .._device import (new_declines, note_fallback, resolve_device,
+                       resolve_engine, strict_mode)
 from ..codecs.lzx import LzxDecompressor
 from ..codecs.mszip import MszipDecompressor
 from ..codecs.qtm import QtmDecompressor
@@ -216,7 +221,7 @@ class CabDecompressor:
     """Pythonic equivalent of mscab_decompressor (mspack.h:957-1180)."""
 
     def __init__(self, message: Callable[[str], None] | None = None,
-                 engine: str = "cuda", device="cuda"):
+                 engine: str = "cuda", device="cuda", strict=None):
         self.searchbuf_size = 32768
         self.fix_mszip = False
         self.buf_size = 4096
@@ -225,6 +230,11 @@ class CabDecompressor:
         self.engine = resolve_engine(engine)
         self.device = resolve_device(device) if self.engine == "cuda" \
             else None
+        # strict: a folder that engine="cuda" declines raises FallbackError
+        # instead of taking the scalar path; fallback_reasons keeps why
+        # each device path declined, {path: "FallbackError: msg"}
+        self.strict = strict_mode(strict)
+        self.fallback_reasons: dict[str, str] = {}
         self.cuda_engine = None       # lazy CudaMszipEngine (host phase B)
         self.cuda_lzx_engine = None   # lazy CudaLzxEngine
         self.cuda_qtm_engine = None   # lazy CudaQtmEngine
@@ -805,40 +815,54 @@ class CabDecompressor:
 
     # -- engine="cuda" ---------------------------------------------------
 
-    def _cuda(self, attr, cls):
-        """The lazily made CUDA engine held in ``attr``."""
+    # codec -> (device path named in fallback_reasons, attribute, engine)
+    _CUDA_PATHS = {
+        COMPTYPE_MSZIP: ("mszip_cuda", "cuda_engine", "CudaMszipEngine"),
+        COMPTYPE_LZX: ("lzx_cuda", "cuda_lzx_engine", "CudaLzxEngine"),
+        COMPTYPE_QUANTUM: ("qtm_cuda", "cuda_qtm_engine", "CudaQtmEngine")}
+
+    def _cuda(self, ct):
+        """The lazily made CUDA engine of codec ``ct``."""
+        from ..parallel import cuda_pipeline as cp
+
+        _, attr, cls = self._CUDA_PATHS[ct]
         eng = getattr(self, attr)
         if eng is None:
-            eng = cls(self.device)
+            eng = getattr(cp, cls)(self.device)
             setattr(self, attr, eng)
         return eng
 
     def _folder_bytes_cuda(self, fol: CabFolder, ct: int):
         """One MSZIP, LZX or Quantum folder through the CUDA engine of its
         codec; None when its blocks cannot be collected or the engine
-        declines (counted in the engine's ``declines``)."""
-        from ..parallel import cuda_pipeline as cp
-
-        if ct == COMPTYPE_MSZIP:
-            collected = self.collect_mszip_frames(fol)
-            if collected is None:
-                return None
-            frames, sizes = collected
-            outs = self._cuda("cuda_engine", cp.CudaMszipEngine) \
-                .decode_folders([([f[2:] for f in frames], sizes)])
-            return None if outs is None else outs[0]
-        collected = self.collect_raw_blocks(fol)
+        declines (counted in the engine's ``declines``). Every decline, and
+        an MSZIP folder the engine re-decoded on the host, is noted in
+        ``fallback_reasons`` and raises ``FallbackError`` under strict."""
+        path = self._CUDA_PATHS[ct][0]
+        collected = (self.collect_mszip_frames if ct == COMPTYPE_MSZIP
+                     else self.collect_raw_blocks)(fol)
         if collected is None:
+            note_fallback(self, path, "CFDATA blocks could not be collected")
             return None
-        blocks, sizes = collected
+        eng = self._cuda(ct)
+        before = dict(eng.declines)
+        out = self._decode_cuda(eng, fol, ct, *collected)
+        declined = new_declines(eng, before)
+        if declined:
+            note_fallback(self, path, declined)
+        return out
+
+    def _decode_cuda(self, eng, fol: CabFolder, ct: int, blocks, sizes):
+        """The folder's bytes from ``eng``, or None where it declines."""
+        if ct == COMPTYPE_MSZIP:
+            outs = eng.decode_folders([([f[2:] for f in blocks], sizes)])
+            return None if outs is None else outs[0]
         wb = (fol.comp_type >> 8) & 0x1F
         if ct == COMPTYPE_LZX:
-            outs = self._cuda("cuda_lzx_engine", cp.CudaLzxEngine) \
-                .decode_streams([b"".join(blocks)], [sum(sizes)], wb)
+            outs = eng.decode_streams([b"".join(blocks)], [sum(sizes)], wb)
             return None if outs is None else outs[0]
         # Quantum: cabd injects a 0xFF realign trailer after every block
         # (cabd.c:1327-1332)
-        eng = self._cuda("cuda_qtm_engine", cp.CudaQtmEngine)
         outs = eng.decode_streams([b"".join(b + b"\xff" for b in blocks)],
                                   [sum(sizes)], wb)
         if outs is None:

@@ -27,8 +27,11 @@ K3 lane of ``CudaLzxEngine``. The engine declines on an intel E8 header
 section it cannot cut into chunks (no usable plan, no reset offsets for a
 section longer than one interval, chunks that do not add up to the
 section). Every decline is counted by reason in the engine's
-``declines``; the section then takes the native path, and the scalar path
-if that fails too. The engine's trace budget, not a chunk-size limit,
+``declines`` and noted in ``fallback_reasons``; the section then takes the
+native path, and the scalar path if that fails too. Under strict mode
+(``strict=True``, or the environment variable ``MSPACK_TPU_STRICT`` set, as
+in the reference) a decline raises ``FallbackError`` instead. The engine's
+trace budget, not a chunk-size limit,
 bounds a launch. The JAX package's ``"jax"`` and ``"tpu"`` engines are not
 ported.
 """
@@ -37,7 +40,8 @@ from __future__ import annotations
 import os
 from typing import List, Optional
 
-from .._device import resolve_device, resolve_engine
+from .._device import (new_declines, note_fallback, resolve_device,
+                       resolve_engine, strict_mode)
 from ..codecs import lzx as lzx_mod
 from ..codecs.lzx import LzxDecompressor
 from ..errors import (ArgsError, DataFormatError, DecrunchError, MSPackError,
@@ -199,11 +203,14 @@ class _DecompState:
 class ChmDecompressor:
     """Pythonic equivalent of mschm_decompressor (mspack.h:1577-1724)."""
 
-    def __init__(self, message=None, engine: str = "cuda", device="cuda"):
+    def __init__(self, message=None, engine: str = "cuda", device="cuda",
+                 strict=None):
         self.message = message or (lambda s: None)
         self.engine = resolve_engine(engine)
         self.device = resolve_device(device) if self.engine == "cuda" \
             else None
+        self.strict = strict_mode(strict)
+        self.fallback_reasons: dict[str, str] = {}
         self.cuda_engine = None    # lazy CudaLzxEngine
         self._scratch_out = None   # warm decode arena (native.Scratch)
         self._d: Optional[_DecompState] = None
@@ -697,10 +704,19 @@ class ChmDecompressor:
 
     def _sec1_bytes_cuda(self, d: _DecompState) -> bytes | None:
         """The whole section through ``CudaLzxEngine``, one lane per
-        reset-interval chunk, cached; None declines."""
-        chm = d.chm
-        if self._sec1_cache is not None and self._sec1_cache[0] is chm:
+        reset-interval chunk, cached; None declines (noted in
+        ``fallback_reasons``; ``FallbackError`` under strict)."""
+        if self._sec1_cache is not None and self._sec1_cache[0] is d.chm:
             return self._sec1_cache[1]
+        eng = self._cuda_engine()
+        before = dict(eng.declines)
+        out = self._sec1_decode_cuda(d)
+        if out is None:
+            note_fallback(self, "chm_lzx_cuda", new_declines(eng, before))
+        return out
+
+    def _sec1_decode_cuda(self, d: _DecompState) -> bytes | None:
+        chm = d.chm
         try:
             plan = self._sec1_plan(d)
         except MSPackError as e:

@@ -27,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -86,7 +87,7 @@ def compile_to(cmd: list[str], so: str) -> str:
     concurrent builds never load a half-written library). Returns the
     compiler's stderr; raises with it on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     r = subprocess.run(cmd + ["-o", tmp], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n"

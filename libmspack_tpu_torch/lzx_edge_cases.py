@@ -2,11 +2,15 @@
 verbatim, aligned and uncompressed blocks (one entered after an odd bit
 count, one crossing a frame end at an odd byte), an empty LENGTH tree,
 multi-frame streams, windows 2^15, 2^16 and 2^21, an intel E8 header, a
-ring-window alias on a 2^15 window, LZX DELTA with reference data and the
-long-match escape, a stream asked for 0 bytes, and corrupt streams (bad
-block type, an over-subscribed pretree, a LENGTH symbol from an empty
-tree, an offset beyond the stream, an offset behind the window wrap and
-the frame's start).
+ring-window alias on a 2^15 window, a code-length run that crosses each
+main-tree part's end, zero-length VERBATIM and ALIGNED blocks, R0-R2 at
+or above 2^31 from an uncompressed block, LZX DELTA with reference data
+and the long-match escape, DELTA at window 2^25 with matches into the
+first bytes of a full-size reference, a stream asked for 0 bytes, and
+corrupt streams (bad block type, an over-subscribed pretree, a LENGTH
+symbol from an empty tree, an offset beyond the stream, an offset behind
+the window wrap and the frame's start, a repeat match of an R0 above
+2^31).
 
 Streams come from the port's copy of the encoder (``compress/lzx_e``,
 native or Python) and from a small block writer here, which can emit what the encoder
@@ -61,6 +65,22 @@ def scalar_decode(stream, out_len, window_bits, delta=False, ref=b""):
     return bytes(out)
 
 
+def _write_ops(w, ops):
+    """A pretree and the code-length ops of ``lzx_e._len_ops`` after it
+    (``lzx_e.write_lens`` for ops made by hand)."""
+    freqs = [0] * 20
+    for sym, _, _ in ops:
+        freqs[sym] += 1
+    plens = lzx_e.make_lengths(freqs, lzx_e.PRETREE_LEN_LIMIT)
+    pcodes = lzx_e.canonical_codes(plens)
+    for p in plens:
+        w.write_bits(p, 4)
+    for sym, extra, ebits in ops:
+        w.write_bits(pcodes[sym], plens[sym])
+        if ebits > 0:
+            w.write_bits(extra, ebits)
+
+
 class _Writer:
     """Hand-made LZX streams, block by block. Tokens are the encoder's:
     ``(0, byte)``, ``(1, length, repeat index)``, ``(2, length, dist)``;
@@ -83,9 +103,15 @@ class _Writer:
         if self.pos % FRAME == 0 and not self.w.bit_aligned:
             self.w.align16()
 
-    def block(self, tokens, aligned=False, empty_length=False):
+    def block(self, tokens, aligned=False, empty_length=False,
+              zero_length=False, spill=0):
         """One VERBATIM (or ALIGNED) block. ``empty_length`` writes an
-        all-zero LENGTH tree whatever the tokens need."""
+        all-zero LENGTH tree whatever the tokens need; ``zero_length``
+        writes the trees the tokens need, a length of 0 and no tokens;
+        ``spill`` > 0 ends each of the two main-tree parts with a run of
+        zeros that goes ``spill`` lengths past the part's end (the
+        reference writes them into the lengths that follow, which the next
+        part then reads as its previous lengths: lzxd.c:138-183)."""
         fmain, flen, falign, _, _ = self.enc._freqs(tokens)
         mlens = lzx_e.make_lengths(fmain, lzx_e.TREE_LEN_LIMIT)
         llens = ([0] * len(flen) if empty_length
@@ -95,15 +121,29 @@ class _Writer:
             alens = [3] * 8
         w = self.w
         w.write_bits(2 if aligned else 1, 3)
-        w.write_bits(sum(1 if t[0] == 0 else t[1] for t in tokens), 24)
+        w.write_bits(0 if zero_length
+                     else sum(1 if t[0] == 0 else t[1] for t in tokens), 24)
         if aligned:
             for a in alens:
                 w.write_bits(a, 3)
-        lzx_e.write_lens(w, self.prev_main, mlens, 0, 256)
-        lzx_e.write_lens(w, self.prev_main, mlens, 256, self.nmain)
+        if spill:
+            prev = list(self.prev_main) + [0] * spill
+            for first, last in ((0, 256), (256, self.nmain)):
+                if any(mlens[last - 24:last]):
+                    raise ValueError("spill needs 24 unused symbols at the "
+                                     "end of each main-tree part")
+                ops = lzx_e._len_ops(prev, mlens, first, last - 24)
+                ops.append((18, 24 + spill - 20, 5))
+                _write_ops(w, ops)
+                prev[last:last + spill] = [0] * spill
+        else:
+            lzx_e.write_lens(w, self.prev_main, mlens, 0, 256)
+            lzx_e.write_lens(w, self.prev_main, mlens, 256, self.nmain)
         lzx_e.write_lens(w, self.prev_len, llens, 0, lzx_e.NUM_SECONDARY)
         self.prev_main[:] = mlens
         self.prev_len[:] = llens
+        if zero_length:
+            return self
         codes = (lzx_e.canonical_codes(mlens), mlens,
                  lzx_e.canonical_codes(llens), llens,
                  lzx_e.canonical_codes(alens), alens)
@@ -170,6 +210,11 @@ def _lits(data):
     return [(0, b) for b in data]
 
 
+def _out_len(tokens):
+    """The bytes a token list decodes to."""
+    return sum(1 if t[0] == 0 else t[1] for t in tokens)
+
+
 def lzx_edge_batch(seed=0, big=1 << 17):
     """The cases, valid ones first. ``big`` sizes the encoder-made streams
     at windows 2^16 and 2^21 (the smoke run passes more)."""
@@ -227,6 +272,37 @@ def lzx_edge_batch(seed=0, big=1 << 17):
          .getvalue())
     add("stored_odd_frame_cross", s, FRAME + 8 + 34, 15)
 
+    # cases added later draw from their own generator, so that the cases
+    # above and below keep their bytes
+    rng2 = np.random.RandomState(seed + 7)
+    t2 = _text(rng2, 800)
+    # a code-length run that crosses each main-tree part's end: the zeros
+    # it spills are the previous lengths the next part's deltas read, so
+    # the second block's repeat-match lengths decode only if they are kept
+    # (the TPU kernel flags such a run, pallas_lzx.py:494-498)
+    reps = [(1, n, 0) for n in (2, 3, 4, 5)]
+    toks = [_lits(t2[:300]) + [(2, 20, 100)] + reps * 3 + _lits(t2[300:400]),
+            _lits(t2[400:600]) + [(2, 9, 150)] + reps + _lits(t2[600:700])]
+    s = _Writer(15).block(toks[0]).block(toks[1], spill=4).getvalue()
+    add("lens_run_crosses_part", s, sum(map(_out_len, toks)), 15)
+    # zero-length VERBATIM and ALIGNED blocks (trees, no symbols) between
+    # two blocks
+    for aligned in (False, True):
+        toks = [_lits(t2[:100]), _lits(t2[100:200]) + [(2, 30, 50)]]
+        s = (_Writer(15).block(toks[0])
+             .block(toks[1], aligned=aligned, zero_length=True)
+             .block(toks[1]).getvalue())
+        add(f"zero_length_{'aligned' if aligned else 'verbatim'}", s,
+            sum(map(_out_len, toks)), 15)
+    # R0-R2 at or above 2^31 from an uncompressed block, shifted out by
+    # three matches before a repeat match reads R2 (the TPU kernel holds
+    # them as int32)
+    high = (0x80000001, 0xFFFFFFFF, 0x80000000)
+    toks = (_lits(t2[:60]) + [(2, 10, 50), (2, 5, 20), (2, 7, 33), (1, 9, 2)]
+            + _lits(t2[60:90]))
+    s = _Writer(15).stored(b"hi", high).block(toks).getvalue()
+    add("r_above_2g_shifted_out", s, 2 + _out_len(toks), 15)
+
     # DELTA, window 2^17: long matches into the reference data escape
     base = _text(rng, 3000) + bytes(rng.randint(0, 256, 400, np.uint8))
     new = bytearray(base)
@@ -236,6 +312,18 @@ def lzx_edge_batch(seed=0, big=1 << 17):
     new = bytes(new) + b"appended " * 30
     s = lzx_e.LzxEncoder(17, is_delta=True).compress(new, ref_data=base)[0]
     add("delta_ref_escape", s, len(new), 17, delta=True, ref=base)
+    # DELTA at window 2^25 with a full-size reference (the window less one
+    # frame, as an OAB patch block of 32 KiB has it): matches reach its
+    # first bytes, its middle and its end
+    ref = rng2.randint(0, 256, (1 << 25) - FRAME, np.uint8).tobytes()
+    mid = len(ref) // 2
+    new = (ref[:3000] + _text(rng2, 500) + ref[mid:mid + 3000]
+           + ref[-3000:] + ref[1000:1500])
+    # (the matcher's chains must be long to find the oldest bytes of a
+    # random reference)
+    s = lzx_e.compress(new, 25, is_delta=True, ref_data=ref,
+                       max_chain=1024)[0]
+    add("delta_w25_full_ref", s, len(new), 25, delta=True, ref=ref)
 
     # encoder-made streams at windows 2^16 and 2^21, and stored blocks
     corpus = _corpus(rng, big)
@@ -265,6 +353,11 @@ def lzx_edge_batch(seed=0, big=1 << 17):
          .block(_fill(FRAME - 1) + _lits(_text(rng, 300)) + [(1, 20, 2)])
          .getvalue())
     add("offset_past_frame_start", s, FRAME + 320, 15, valid=False)
+    # R0 at 2^31 + 1 from an uncompressed block, read by a repeat match: an
+    # offset beyond the stream, which the reference rejects
+    s = (_Writer(15).stored(b"hi", high)
+         .block(_lits(t2[:20]) + [(1, 9, 0)]).getvalue())
+    add("r0_above_2g_used", s, 2 + 20 + 9, 15, valid=False)
     return cases
 
 
@@ -328,7 +421,7 @@ def resolve(cases, tok, litw, cnt):
     ``cases`` share one window; ``tok``, ``litw``: int32 numpy ``(L, T)``;
     ``cnt``: the ``(8, L)`` counts. Returns a list of bytes, or None where
     the lane is flagged or the resolver fails."""
-    from .parallel.cuda_pipeline import resolve_lzx, window_tails
+    from .parallel.cuda_pipeline import resolve_lzx
 
     wb = cases[0].window_bits
     out = []
@@ -338,6 +431,6 @@ def resolve(cases, tok, litw, cnt):
             continue
         got = resolve_lzx(tok[i:i + 1], litw[i:i + 1], [c.out_len],
                           cnt[4, i:i + 1], cnt[5, i:i + 1], wb,
-                          window_tails([c.ref], wb), n_threads=1)
+                          [c.ref], n_threads=1)
         out.append(None if got is None else got[0].tobytes())
     return out

@@ -6,13 +6,15 @@ source changes.
 
 Copied from ``libmspack_tpu/native/__init__.py`` so that the port imports
 nothing of the JAX package; besides the imports, the build goes to the
-port's build directory and the wrappers of the entry points the port never
-calls are left out, as in ``msp_native.cpp``.
+port's build directory, the wrappers of the entry points the port never
+calls are left out, as in ``msp_native.cpp``, and ``lzx_resolve_traces``
+takes one history per lane, of any length, instead of whole-window rows.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 from .. import kernels
 
@@ -21,6 +23,7 @@ _SRC = os.path.join(_DIR, "msp_native.cpp")
 
 _lib = None
 _build_error: str | None = None
+_LOCK = threading.Lock()
 
 
 def _build() -> str:
@@ -33,29 +36,38 @@ def _build() -> str:
 
 
 def lib():
-    """The loaded engine, building it if needed. Raises on failure."""
+    """The loaded engine, building it if needed. Raises on failure.
+    Threads may call it at once (the smoke run's encoders do): one builds
+    and loads, and the library is published only with its return types
+    set."""
     global _lib, _build_error
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _LOCK:
+        if _lib is not None:
+            return _lib
         if _build_error:
             raise RuntimeError(_build_error)
         try:
-            _lib = ctypes.CDLL(_build())
+            lib_ = ctypes.CDLL(_build())
         except Exception as e:  # remember: don't retry every call
             _build_error = f"native engine unavailable: {e}"
             raise RuntimeError(_build_error) from e
-        _lib.msp_mszip_folder.restype = ctypes.c_int
-        _lib.msp_lzx_decode.restype = ctypes.c_int
-        _lib.msp_lzx_decode_ex.restype = ctypes.c_int
-        _lib.msp_lzx_many.restype = ctypes.c_int
-        _lib.msp_lzx_encode.restype = ctypes.c_int64
-        _lib.msp_cab_pipeline.restype = ctypes.c_int
-        _lib.msp_qtm_decode.restype = ctypes.c_int
-        _lib.msp_qtm_encode.restype = ctypes.c_int64
-        _lib.msp_resolve_trace.restype = ctypes.c_int
-        _lib.msp_resolve_traces.restype = ctypes.c_int
-        _lib.msp_lzx_resolve_trace.restype = ctypes.c_int
-        _lib.msp_lzx_resolve_traces.restype = ctypes.c_int
-        _lib.msp_e8_decode.restype = None
+        lib_.msp_mszip_folder.restype = ctypes.c_int
+        lib_.msp_lzx_decode.restype = ctypes.c_int
+        lib_.msp_lzx_decode_ex.restype = ctypes.c_int
+        lib_.msp_lzx_many.restype = ctypes.c_int
+        lib_.msp_lzx_encode.restype = ctypes.c_int64
+        lib_.msp_cab_pipeline.restype = ctypes.c_int
+        lib_.msp_qtm_decode.restype = ctypes.c_int
+        lib_.msp_qtm_encode.restype = ctypes.c_int64
+        lib_.msp_resolve_trace.restype = ctypes.c_int
+        lib_.msp_resolve_traces.restype = ctypes.c_int
+        lib_.msp_lzx_resolve_trace.restype = ctypes.c_int
+        lib_.msp_lzx_resolve_traces.restype = ctypes.c_int
+        lib_.msp_e8_decode.restype = None
+        lib_.msp_lzss.restype = ctypes.c_int64
+        _lib = lib_
     return _lib
 
 
@@ -148,6 +160,18 @@ def mszip_folder(frames: list[bytes], sizes: list[int],
     if not mszip_folder_into(frames, sizes, out, n_threads):
         return None
     return out[:total].tobytes()
+
+
+def lzss_decompress(data: bytes, mode: int = 0,
+                    max_out: int | None = None) -> bytes:
+    L = lib()
+    cap = max(len(data) * 9 + 16, 64)
+    out = ctypes.create_string_buffer(cap)
+    n = L.msp_lzss(data, len(data), mode, out, cap)
+    res = out.raw[: int(n)]
+    if max_out is not None:
+        res = res[:max_out]
+    return res
 
 
 def _as_ptr(buf):
@@ -351,9 +375,13 @@ def lzx_resolve_traces(tok, litw, out_lens: list[int],
 
     tok/litw: contiguous (n_lanes, T) int32 arrays (device trace
     transposed). Each lane is an independent stream (CAB folder / CHM
-    reset chunk); distances may reach into a 2^window_bits zero
-    prefix. iflags/ifszs: per-lane intel-E8 header flag and filesize
-    (kernel counts rows 4/5). Returns 0 on success.
+    reset chunk / OAB block); distances may reach into a 2^window_bits
+    zero prefix, or, with hists (one bytes-like per lane: DELTA reference
+    data or a previous segment's window tail), into a prefix as long as
+    the longest of them, each lane's at its end (the port's change: the
+    JAX package's hists is one whole-window row per lane).
+    iflags/ifszs: per-lane intel-E8 header flag and filesize (kernel
+    counts rows 4/5). Returns 0 on success.
     """
     import numpy as np
     L = lib()
@@ -365,11 +393,17 @@ def lzx_resolve_traces(tok, litw, out_lens: list[int],
     assert tok.dtype == np.int32 and tok.flags.c_contiguous
     assert litw.dtype == np.int32 and litw.flags.c_contiguous
     assert litw.shape == tok.shape
-    hptr = None
+    P = ctypes.POINTER(ctypes.c_uint8)
+    hptr = hlen = None
+    prefix = 1 << window_bits
     if hists is not None:
-        assert hists.dtype == np.uint8 and hists.flags.c_contiguous
-        assert hists.size == n * (1 << window_bits)
-        hptr = hists.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        rows = [np.ascontiguousarray(np.frombuffer(h, np.uint8)
+                                     if not isinstance(h, np.ndarray)
+                                     else h, np.uint8) for h in hists]
+        assert len(rows) == n and all(r.ndim == 1 for r in rows)
+        prefix = min(prefix, max([1] + [r.size for r in rows]))
+        hptr = (P * n)(*[r.ctypes.data_as(P) for r in rows])
+        hlen = (ctypes.c_uint32 * n)(*[r.size for r in rows])
     eptr = None
     if e8_bases is not None:
         eptr = (ctypes.c_int64 * n)(*e8_bases)
@@ -378,9 +412,9 @@ def lzx_resolve_traces(tok, litw, out_lens: list[int],
         litw.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         ctypes.c_int64(tok.shape[1]), ctypes.c_int64(tok.shape[1]),
         ol, ifl, ifs, ctypes.c_int(n),
-        ctypes.c_uint32(1 << window_bits),
+        ctypes.c_uint32(prefix),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), ooff,
-        ctypes.c_int(n_threads or default_threads()), hptr, eptr)
+        ctypes.c_int(n_threads or default_threads()), hptr, hlen, eptr)
 
 
 def e8_decode_buf(buf, ifsz: int, base: int = 0) -> None:

@@ -16,7 +16,7 @@
 // Exposed as a flat C ABI consumed via ctypes (no pybind11 in image).
 //
 // The port's copy of libmspack_tpu/native/msp_native.cpp, with the entry
-// points the port never calls left out (LZSS, the MSZIP-only pipeline, the
+// points the port never calls left out (the MSZIP-only pipeline, the
 // many-folder MSZIP and many-stream LZX encode batches); built by g++ into
 // libmspack_tpu_torch/_build/.
 
@@ -2355,23 +2355,24 @@ static void msp_e8_untransform(uint8_t* d, uint32_t fs, int32_t curpos,
 // Resolve one LZX lane trace (ops/pallas_lzx.py format: -1 NOP,
 // 0x20000000|n literal pack from the litw plane,
 // 0x40000000|len match with litw = linear distance; distances may
-// reach into a wsize-byte zero prefix) into out_len bytes, then apply
+// reach into a wsize-byte prefix) into out_len bytes, then apply
 // the E8 untransform per 32 KiB frame when the intel header fired.
-// work must hold wsize + out_len bytes.
+// work must hold wsize + out_len bytes. The prefix is zeros with the
+// last hist_len bytes of hist at its end (the port's change: the JAX
+// package's copy takes a whole wsize-byte row).
 int msp_lzx_resolve_trace(const int32_t* tok, const int32_t* litw,
                           int64_t T, int64_t lane_stride, int lane,
                           uint64_t out_len, uint32_t wsize, int iflag,
                           int32_t ifsz, uint8_t* out, uint8_t* work,
-                          const uint8_t* hist, int64_t e8_base) {
+                          const uint8_t* hist, uint32_t hist_len,
+                          int64_t e8_base) {
   const int32_t* tr = tok + (int64_t)lane * lane_stride;
   const int32_t* lw = litw + (int64_t)lane * lane_stride;
-  // segment resume: the previous segment's window tail becomes the
-  // prefix so linear distances keep reaching across the boundary
-  if (hist) {
-    memcpy(work, hist, wsize);
-  } else {
-    memset(work, 0, wsize);
-  }
+  // DELTA reference data, or on a segment resume the previous segment's
+  // window tail, ends the prefix so linear distances reach into it
+  uint32_t h = hist ? (hist_len < wsize ? hist_len : wsize) : 0;
+  memset(work, 0, wsize - h);
+  if (h) memcpy(work + wsize - h, hist + (hist_len - h), h);
   uint64_t pos = wsize, target = wsize + out_len;
   for (int64_t t = 0; t < T && pos < target; t++) {
     int32_t v = tr[t];
@@ -2443,7 +2444,8 @@ int msp_lzx_resolve_traces(const int32_t* tok, const int32_t* litw,
                            const int32_t* iflags, const int32_t* ifszs,
                            int n_lanes, uint32_t wsize, uint8_t* out,
                            const int64_t* out_offsets, int n_threads,
-                           const uint8_t* hists,
+                           const uint8_t* const* hists,
+                           const uint32_t* hist_lens,
                            const int64_t* e8_bases) {
   uint64_t max_out = 0;
   for (int i = 0; i < n_lanes; i++) {
@@ -2464,7 +2466,7 @@ int msp_lzx_resolve_traces(const int32_t* tok, const int32_t* litw,
       int r = msp_lzx_resolve_trace(
           tok, litw, T, lane_stride, i, out_lens[i], wsize, iflags[i],
           ifszs[i], out + out_offsets[i], work.data(),
-          hists ? hists + (uint64_t)i * wsize : nullptr,
+          hists ? hists[i] : nullptr, hists ? hist_lens[i] : 0,
           e8_bases ? e8_bases[i] : 0);
       if (r) err.store(r);
     }
@@ -2479,6 +2481,43 @@ int msp_lzx_resolve_traces(const int32_t* tok, const int32_t* litw,
     for (auto& t : ths) t.join();
   }
   return err.load();
+}
+
+// LZSS one-shot decode (SZDD/KWAJ/HLP variants), mode as in lzss.py.
+int64_t msp_lzss(const uint8_t* in, uint64_t in_len, int mode, uint8_t* out,
+                 uint64_t out_cap) {
+  uint8_t window[4096];
+  memset(window, 0x20, sizeof(window));
+  uint32_t pos = mode == 2 ? 4096 - 18 : 4096 - 16;
+  uint8_t invert = mode == 1 ? 0xFF : 0x00;
+  uint64_t i = 0, o = 0;
+  while (i < in_len) {
+    uint8_t c = in[i++] ^ invert;
+    for (int bit = 0; bit < 8; bit++) {
+      if (c & (1 << bit)) {
+        if (i >= in_len) return (int64_t)o;
+        uint8_t v = in[i++];
+        window[pos] = v;
+        if (o < out_cap) out[o] = v;
+        o++;
+        pos = (pos + 1) & 4095;
+      } else {
+        if (i + 1 >= in_len) return (int64_t)o;
+        uint32_t mpos = in[i] | ((in[i + 1] & 0xF0) << 4);
+        uint32_t len = (in[i + 1] & 0x0F) + 3;
+        i += 2;
+        while (len--) {
+          uint8_t v = window[mpos];
+          window[pos] = v;
+          if (o < out_cap) out[o] = v;
+          o++;
+          pos = (pos + 1) & 4095;
+          mpos = (mpos + 1) & 4095;
+        }
+      }
+    }
+  }
+  return (int64_t)o;
 }
 
 

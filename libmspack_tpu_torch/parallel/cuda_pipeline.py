@@ -49,15 +49,17 @@ TRACE_BUDGET = 1 << 30
 MAX_LANES = TRACE_BUDGET // ((8 + 2) * FRAME_MAX)
 
 
-def window_tails(refs, window_bits):
+def window_tails(refs, window_bits, width=None):
     """Each LZX stream's window before its first byte, as uint8 numpy
-    ``(len(refs), 2^window_bits)``: zeros, with the stream's DELTA
-    reference data (if any) at the tail (lzxd.c:348-382)."""
-    wsize = 1 << window_bits
-    hists = np.zeros((len(refs), wsize), np.uint8)
+    ``(len(refs), width)``, the whole window (``2^window_bits``) by
+    default: zeros, with the stream's DELTA reference data (if any) at the
+    tail (lzxd.c:348-382). The segmented decodes carry these rows from one
+    launch to the next."""
+    width = 1 << window_bits if width is None else width
+    hists = np.zeros((len(refs), width), np.uint8)
     for j, ref in enumerate(refs):
         if ref:
-            hists[j, wsize - len(ref):] = np.frombuffer(ref, np.uint8)
+            hists[j, width - len(ref):] = np.frombuffer(ref, np.uint8)
     return hists
 
 
@@ -66,9 +68,12 @@ def resolve_lzx(tok, litw, sizes, iflags, ifszs, window_bits, hists=None,
     """LZX phase B on the host: ``native.lzx_resolve_traces`` of each
     lane's trace (int32 numpy ``(L, T)``, rows as K3 writes them) into one
     arena, with the E8 untransform where rows 4-5 (``iflags``, ``ifszs``)
-    ask for it, and the window before each stream from ``hists`` (zeros
-    when None). Returns each lane's bytes as numpy views, or None on the
-    resolver's error."""
+    ask for it, and the window before each stream ending with its
+    ``hists`` entry (one bytes-like per lane: DELTA reference data or the
+    tail a previous segment left; zeros when None). K3 flags a match that
+    reaches further back than a lane's history (``lzx_core.cuh:426``), so
+    no lane needs more of its window than that. Returns each lane's bytes
+    as numpy views, or None on the resolver's error."""
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     arena = np.empty(max(int(offs[-1]), 1), np.uint8)
     r = native.lzx_resolve_traces(
@@ -113,8 +118,13 @@ class _Engine:
         return time.perf_counter()
 
     def _add(self, name, a, b, host=False):
-        ms = (b - a) * 1e3 if host or self.device.type != "cuda" \
-            else a.elapsed_time(b)
+        if host or self.device.type != "cuda":
+            ms = (b - a) * 1e3
+        else:
+            # an event recorded just after a synchronous pull may not have
+            # completed yet, and elapsed_time refuses it
+            b.synchronize()
+            ms = a.elapsed_time(b)
         self.timings[name] = self.timings.get(name, 0.0) + ms
 
     def _on(self, k):
@@ -427,10 +437,13 @@ class CudaLzxEngine(_StreamEngine):
     ``decode_streams`` returns the bytes of every stream, or None when it
     declines (a flagged lane, an intel E8 header where chunks of one
     stream or DELTA blocks forbid it, a resolver error); the caller then
-    takes its own fallback. Every decline is counted in ``declines``."""
+    takes its own fallback. With ``per_lane`` (independent streams, as OAB
+    blocks are) it always returns the list, None only in the lanes that
+    declined. Every decline is counted in ``declines``, once a launch."""
 
     def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
-                       decline_on_intel=False, is_delta=False, refs=None):
+                       decline_on_intel=False, is_delta=False, refs=None,
+                       per_lane=False):
         """streams: list of bytes; out_lens: their decoded sizes; refs:
         DELTA reference data per stream (preloaded at the window tail,
         lzxd.c:348-382). ``decline_on_intel``: the streams are chunks of
@@ -438,20 +451,23 @@ class CudaLzxEngine(_StreamEngine):
         (lzxd.c:707-713), so an E8 header declines."""
         if not streams:
             return []
+        declined = [None] * len(streams) if per_lane else None
         if not native.available():
             self.declines["native resolver unavailable"] += 1
-            return None
+            return declined
         lo, hi = (17, 25) if is_delta else (15, 21)
         if not lo <= window_bits <= hi:
             self.declines["window size outside LZX's"] += 1
-            return None
+            return declined
         job = dict(streams=streams, out_lens=list(out_lens),
                    window_bits=window_bits, n_threads=n_threads,
                    intel_declines=decline_on_intel or is_delta,
-                   is_delta=is_delta,
+                   is_delta=is_delta, per_lane=per_lane,
                    refs=list(refs) if refs else [b""] * len(streams),
                    outs=[None] * len(streams))
-        return job["outs"] if self._run(job) else None
+        # per_lane: a segmented batch that declines stops the run; its lanes
+        # and those of the batches after it stay None
+        return job["outs"] if self._run(job) or per_lane else None
 
     # -- batching --------------------------------------------------------
 
@@ -482,39 +498,59 @@ class CudaLzxEngine(_StreamEngine):
 
     # -- phase B ---------------------------------------------------------
 
-    def _intel_declined(self, iflags, ifszs, job):
-        if job["intel_declines"] and any(iflags) and any(ifszs):
+    def _intel_lanes(self, cnt, job):
+        """The lanes (columns of ``cnt``) whose E8 header the streams
+        forbid, counted once."""
+        e8 = (cnt[4] != 0) & (cnt[5] != 0) & job["intel_declines"]
+        if e8.any():
             self.declines["intel E8 in chunked or DELTA streams"] += 1
-            return True
-        return False
+        return e8
 
     @staticmethod
-    def _hists(idxs, job):
-        return window_tails([job["refs"][i] for i in idxs],
-                            job["window_bits"])
+    def _tails(idxs, job):
+        """The lanes' windows before their streams for a segmented decode,
+        as wide as phase B reads back across segments: the reference data
+        and the lane's own bytes, at most the window."""
+        refs = [job["refs"][i] for i in idxs]
+        reach = max(len(r) + int(job["out_lens"][i])
+                    for r, i in zip(refs, idxs))
+        return window_tails(refs, job["window_bits"],
+                            min(1 << job["window_bits"], max(1, reach)))
 
     def _finish(self, h, job):
+        """Phase B of one launch. Without ``per_lane`` any declined lane
+        declines the call (False); with it only the lanes that passed are
+        resolved and the others stay None."""
         idxs, sizes = h["idxs"], h["sizes"]
         n = len(idxs)
         with self._on(h["k"]):
-            cnt = h["cnt"].cpu().numpy()
+            cnt = h["cnt"].cpu().numpy()[:, :n]
             e0, e1, e2 = h["marks"]
             self._add("upload_ms", e0, e1)
             self._add("k3_ms", e1, e2)
-            iflags = [int(v) for v in cnt[4, :n]]
-            ifszs = [int(v) for v in cnt[5, :n]]
-            if not self._counts_ok(cnt, slice(0, n), sizes) or \
-                    self._intel_declined(iflags, ifszs, job):
+            bad = (cnt[0] != 0) | (cnt[1] != np.asarray(sizes))
+            if bad.any():
+                self.declines["flagged lane"] += 1
+            bad |= self._intel_lanes(cnt, job)
+            if bad.any() and not job["per_lane"]:
                 return False
-            tok, litw = self._pull(h["tok"], h["litw"], cnt[2, :n])
-            hists = self._hists(idxs, job) if job["is_delta"] else None
-            parts = self._resolve(tok, litw, sizes, iflags, ifszs, hists,
-                                  job)
+            good = np.flatnonzero(~bad)
+            if not len(good):
+                return True
+            tok, litw = self._pull(h["tok"], h["litw"], cnt[2, good])
+            if len(good) < n:
+                tok, litw = tok[good], litw[good]
+            lanes = [idxs[j] for j in good]
+            hists = [job["refs"][i] for i in lanes] if job["is_delta"] \
+                else None
+            parts = self._resolve(tok, litw, [sizes[j] for j in good],
+                                  [int(v) for v in cnt[4, good]],
+                                  [int(v) for v in cnt[5, good]], hists, job)
         if parts is None:
-            return False
-        for j, i in enumerate(idxs):
-            job["outs"][i] = parts[j].tobytes()
-        self.n_decoded += n
+            return job["per_lane"]
+        for part, i in zip(parts, lanes):
+            job["outs"][i] = part.tobytes()
+        self.n_decoded += len(good)
         return True
 
     def _segmented(self, idxs, seg, job):
@@ -525,7 +561,7 @@ class CudaLzxEngine(_StreamEngine):
         n = len(idxs)
         totals = np.array([int(job["out_lens"][i]) for i in idxs])
         parts = [np.empty(int(t), np.uint8) for t in totals]
-        tails = self._hists(idxs, job)
+        tails = self._tails(idxs, job)
         e0 = self._mark()
         streams, lens, budgets = self._upload(idxs, job)
         self._add("upload_ms", e0, self._mark())
@@ -553,13 +589,11 @@ class CudaLzxEngine(_StreamEngine):
                     parts[j][pos[j]:targets[j]] = got[j]
                     tails[j] = np.concatenate([tails[j], got[j]])[
                         -len(tails[j]):]
-        iflags = [int(v) for v in cnt[4, :n]]
-        ifszs = [int(v) for v in cnt[5, :n]]
-        if self._intel_declined(iflags, ifszs, job):
+        if self._intel_lanes(cnt[:, :n], job).any():
             return False
         for j, i in enumerate(idxs):
-            if iflags[j] and ifszs[j]:
-                native.e8_decode_buf(parts[j], ifszs[j], 0)
+            if cnt[4, j] and cnt[5, j]:
+                native.e8_decode_buf(parts[j], int(cnt[5, j]), 0)
             job["outs"][i] = parts[j].tobytes()
         self.n_decoded += n
         return True

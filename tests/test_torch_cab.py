@@ -7,8 +7,13 @@ plain versions, and is held to ``libmspack_tpu``'s ``engine="tpu"`` (the
 Pallas kernels in interpret mode) and ``engine="scalar"``: equal bytes,
 and an error class of the same name on a corrupt frame (the port has its
 own copies of the error classes). The port's own writers give the bench's
-cabinets byte for byte, and a subprocess drives every port path without
-importing jax, the JAX package or bench.py.
+cabinets byte for byte, and a subprocess drives every port path (CAB, CHM,
+OAB, SZDD, KWAJ and the device ops) without importing jax, the JAX
+package or bench.py. Strict mode: an MSZIP folder with a partial
+mid-folder frame (under device phase B) and a Quantum folder whose
+window-wrap flush the reference codec refuses decline; each is served
+without strict mode and raises ``FallbackError`` under ``strict=True`` and
+under ``MSPACK_TPU_STRICT=1``.
 """
 import os
 import struct
@@ -164,6 +169,81 @@ def test_file_past_decoded_folder_gets_scalar_error(compression):
     assert errors["cuda"] is errors["scalar"]
 
 
+def _partial_mid_frame_cab(monkeypatch):
+    """One MSZIP folder of two CFDATA blocks whose first decodes to fewer
+    than 32768 bytes (the second's matches reach into it): the host
+    resolver chains it, device phase B's rule declines it."""
+    from libmspack_tpu_torch.compress import cab_c as port_cab_c
+
+    raw0, raw1 = b"short first frame " * 10, b"second frame, " * 50
+    co0 = zlib.compressobj(9, zlib.DEFLATED, -15)
+    co1 = zlib.compressobj(9, zlib.DEFLATED, -15, 9,
+                           zlib.Z_DEFAULT_STRATEGY, raw0)
+    blocks = [(b"CK" + co0.compress(raw0) + co0.flush(), len(raw0)),
+              (b"CK" + co1.compress(raw1) + co1.flush(), len(raw1))]
+    with monkeypatch.context() as m:
+        m.setattr(port_cab_c, "_encode_folder_blocks",
+                  lambda spec: (1, blocks))
+        blob = port_cab_c.write_cab(files=[("p.txt", raw0 + raw1)])
+    return blob, {"p.txt": raw0 + raw1}
+
+
+def _wrap_flush_cab():
+    from libmspack_tpu_torch import qtm_edge_cases as qe
+    from libmspack_tpu_torch.compress import cab_c as port_cab_c
+
+    files, wb = qe.wrap_flush_files()
+    blob = port_cab_c.write_cab(folders=[port_cab_c.FolderSpec(
+        files, "quantum", wb)])
+    return blob, lt.create_cab_decompressor(engine="scalar")
+
+
+def _outcomes(d, blob):
+    """{file name: bytes or error class name}."""
+    out = {}
+    for f in d.open(blob).files:
+        sink = BytesSink()
+        try:
+            d.extract(f, sink)
+            out[f.filename] = sink.getvalue()
+        except lt.MSPackError as e:
+            out[f.filename] = type(e).__name__
+    return out
+
+
+@pytest.mark.parametrize("how", ["off", "keyword", "environment"])
+@pytest.mark.parametrize("case", ["mszip_partial_mid_frame",
+                                  "quantum_wrap_flush"])
+def test_strict_mode_raises_on_a_decline(case, how, monkeypatch):
+    """Without strict mode a declining folder is served (the scalar path's
+    bytes or errors) and its reason noted; with ``strict=True`` or
+    ``MSPACK_TPU_STRICT=1`` the first extract raises ``FallbackError``
+    naming the path and the decline."""
+    if case == "mszip_partial_mid_frame":
+        blob, want = _partial_mid_frame_cab(monkeypatch)
+        path, reason = "mszip_cuda", "partial mid-folder frame"
+    else:
+        blob, scalar = _wrap_flush_cab()
+        want = _outcomes(scalar, blob)
+        path, reason = "qtm_cuda", "window-wrap flush across a file edge"
+    if how == "environment":
+        monkeypatch.setenv("MSPACK_TPU_STRICT", "1")
+    d = lt.create_cab_decompressor(engine="cuda", device="cpu",
+                                   strict=True if how == "keyword" else None)
+    if case == "mszip_partial_mid_frame":
+        # the decline is device phase B's (K2) rule
+        d.cuda_engine = CudaMszipEngine("cpu", phase_b="device")
+    if how == "off":
+        assert _outcomes(d, blob) == want
+        assert reason in d.fallback_reasons[path]
+        return
+    f = d.open(blob).files[0]
+    with pytest.raises(lt.FallbackError) as info:
+        d.extract(f, BytesSink())
+    assert info.value.path == path and reason in info.value.reason
+    assert isinstance(info.value, lt.DecrunchError)
+
+
 def test_none_folder_takes_scalar_path():
     files = [("n.txt", b"stored as is " * 100)]
     blob = cab_c.write_cab(files=files, compression="none")
@@ -182,7 +262,8 @@ def test_cuda_device_raises_without_gpu():
 
 
 def test_entry_points_default_to_the_card():
-    for create in (lt.create_cab_decompressor, lt.create_chm_decompressor):
+    for create in (lt.create_cab_decompressor, lt.create_chm_decompressor,
+                   lt.create_oab_decompressor, lt.create_szdd_decompressor):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="cuda"):
                 create()
@@ -248,6 +329,27 @@ def test_port_imports_no_jax():
         "assert one(c, chm) == data and c.cuda_engine.n_decoded == 1\n"
         "assert one(lt.create_chm_decompressor(engine='native'), chm)"
         " == data\n"
+        "from libmspack_tpu_torch.compress import lzss_c, oab_c\n"
+        "from libmspack_tpu_torch.ops import checksum, crc32, digest\n"
+        "oab = oab_c.write_oab(data)\n"
+        "o = lt.create_oab_decompressor(engine='cuda', device='cpu')\n"
+        "assert o.decompress_bytes(oab) == data\n"
+        "assert o.stats['device blocks'] == 1\n"
+        "patch = oab_c.write_oab_patch(data[::-1], data)\n"
+        "assert o.decompress_incremental_bytes(patch, data) == data[::-1]\n"
+        "assert lt.create_oab_decompressor(engine='native')"
+        ".decompress_bytes(oab) == data\n"
+        "szdd = lzss_c.szdd_compress(data[:3000])\n"
+        "for e, kw in (('cuda', {'device': 'cpu'}), ('native', {})):\n"
+        "    s = lt.create_szdd_decompressor(engine=e, **kw)\n"
+        "    assert s.decompress_bytes(szdd) == data[:3000]\n"
+        "kwaj = lzss_c.kwaj_compress(data[:3000], method=4, "
+        "filename='k.txt')\n"
+        "assert lt.create_kwaj_decompressor().decompress_bytes(kwaj)"
+        " == data[:3000]\n"
+        "assert checksum.cab_checksum(data, device='cpu') >= 0\n"
+        "assert digest.verify_frames(__import__('torch').zeros((1, 8), "
+        "dtype=__import__('torch').uint8), [0], [b''])\n"
         "bad = [m for m in sys.modules if m in ('jax', 'bench', 'devtime')\n"
         "       or m.split('.')[0] in ('libmspack_tpu', 'tools')]\n"
         "assert not bad, bad\n"

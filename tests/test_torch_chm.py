@@ -6,10 +6,13 @@ CHMs come from the JAX package's writer (``compress/chm_c.write_chm``).
 The port is held to ``libmspack_tpu``'s ``engine="tpu"`` (the Pallas
 kernel in interpret mode) on a one-chunk CHM and to ``engine="native"``
 and ``engine="scalar"`` on larger ones: equal bytes. An intel E8 header,
-whose state is stream-global, is declined and counted, and the section
-then takes the reference's native path, with the same bytes.
+whose state is stream-global, is declined, counted and noted in
+``fallback_reasons``, and the section then takes the reference's native
+path, with the same bytes; under ``strict=True`` or
+``MSPACK_TPU_STRICT=1`` it raises ``FallbackError`` instead.
 """
 import numpy as np
+import pytest
 
 from libmspack_tpu.compress import chm_c, lzx_e
 from libmspack_tpu.formats.chm import ChmDecompressor as JaxChmDecompressor
@@ -68,24 +71,45 @@ def test_chm_chunks_one_lane_each():
     assert not d.cuda_engine.declines
 
 
-def test_chm_intel_e8_declined_counted_bytes_right(monkeypatch):
+def _e8_chm(monkeypatch):
     """chm_c writes no E8 header; its encoder call is swapped for one
     that does, on every reset chunk."""
     def compress_e8(data, window_bits, reset_interval=0, **kw):
         return lzx_e.LzxEncoder(window_bits, reset_interval,
                                 intel_filesize=1_000_000).compress(data)
 
-    monkeypatch.setattr(chm_c.lzx_e, "compress", compress_e8)
     files = _files(3, [3000, 4000])
     files[1] = (files[1][0], files[1][1][:100] + b"\xe8\x10\x20\x00\x00"
                 + files[1][1][105:])
-    blob = chm_c.write_chm(files)
+    with monkeypatch.context() as m:
+        m.setattr(chm_c.lzx_e, "compress", compress_e8)
+        return files, chm_c.write_chm(files)
+
+
+def test_chm_intel_e8_declined_counted_bytes_right(monkeypatch):
+    files, blob = _e8_chm(monkeypatch)
     want = extract_all(JaxChmDecompressor(engine="scalar"), blob)
     d = lt.create_chm_decompressor(engine="cuda", device="cpu")
     assert extract_all(d, blob) == want
     assert want["/page1.html"] != files[1][1]   # E8 did translate
     assert d.cuda_engine.declines == {
         "intel E8 in chunked or DELTA streams": 1}
+    assert "intel E8" in d.fallback_reasons["chm_lzx_cuda"]
+
+
+@pytest.mark.parametrize("how", ["keyword", "environment"])
+def test_chm_strict_mode_raises_on_intel_e8(how, monkeypatch):
+    _, blob = _e8_chm(monkeypatch)
+    if how == "environment":
+        monkeypatch.setenv("MSPACK_TPU_STRICT", "1")
+        d = lt.create_chm_decompressor(engine="cuda", device="cpu")
+    else:
+        d = lt.create_chm_decompressor(engine="cuda", device="cpu",
+                                       strict=True)
+    f = next(f for f in d.open(blob).files if f.filename == "/page0.html")
+    with pytest.raises(lt.FallbackError, match="intel E8") as info:
+        d.extract(f, BytesSink())
+    assert info.value.path == "chm_lzx_cuda"
 
 
 def test_chm_without_reset_offsets_declined_counted_bytes_right():

@@ -5,11 +5,13 @@ the port's plain version and, for its window-2^15 and DELTA groups, through
 ``pallas_lzx.lzx_phase_a`` in interpret mode (two interpreted calls, shared
 by a module fixture), fed from the same packed grid by ``from_jax_batch``.
 Tolerance: exact — counts rows 0, 1, 4 and 5 equal and equal bytes through
-``replay_trace`` on every lane but two known faults of the TPU kernel
+``replay_trace`` on every lane but the known faults of the TPU kernel
 (ROADMAP Queue 3), where the port follows the reference codec:
-``stored_odd_frame_cross`` (the TPU kernel reads a byte late) and
-``offset_past_frame_start`` (the TPU kernel accepts what the reference
-rejects). On the whole batch the plain version resolves to the reference
+``stored_odd_frame_cross`` (the TPU kernel reads a byte late),
+``offset_past_frame_start`` and ``r0_above_2g_used`` (the TPU kernel
+accepts what the reference rejects), and ``zero_length_verbatim`` and
+``zero_length_aligned`` (the TPU kernel flags what the reference accepts).
+On the whole batch the plain version resolves to the reference
 codec's bytes, the g++ build of the kernel's C++ core equals the plain
 version token for token and state byte for state byte, and a decode in
 segments through the state record equals one launch.
@@ -25,9 +27,11 @@ from libmspack_tpu_torch.ops import cuda_lzx as cl
 
 JAX_GROUPS = [(15, False), (17, True)]
 # lanes where the TPU kernel departs from the reference codec: its bytes
-# differ, or it accepts a stream the reference rejects
+# differ, it accepts a stream the reference rejects, or it flags a stream
+# the reference accepts
 TPU_WRONG_BYTES = {"stored_odd_frame_cross"}
-TPU_ACCEPTS = {"offset_past_frame_start"}
+TPU_ACCEPTS = {"offset_past_frame_start", "r0_above_2g_used"}
+TPU_FLAGS = {"zero_length_verbatim", "zero_length_aligned"}
 
 
 @pytest.fixture(scope="module")
@@ -71,14 +75,20 @@ def test_plain_matches_jax_kernel(jax_runs, key):
     assert cl.LAUNCHES["plain"] == before + 1
     cnt = cnt.numpy()
     # row 0: flagged exactly where the TPU kernel flags, class 1 where 1
-    accepts = np.array([c.name in TPU_ACCEPTS for c in sub])
-    np.testing.assert_array_equal((cnt[0] != 0)[~accepts],
-                                  (jcnt[0, :n] != 0)[~accepts])
-    assert (cnt[0][jcnt[0, :n] == 1] == 1).all()
+    known = np.array([c.name in TPU_ACCEPTS | TPU_FLAGS for c in sub])
+    np.testing.assert_array_equal((cnt[0] != 0)[~known],
+                                  (jcnt[0, :n] != 0)[~known])
+    assert (cnt[0][(jcnt[0, :n] == 1) & ~known] == 1).all()
     for i, c in enumerate(sub):
         if c.raw is None:
             assert cnt[0, i] == 1, c.name
             assert jcnt[0, i] == (0 if c.name in TPU_ACCEPTS else 1)
+            continue
+        if c.name in TPU_FLAGS:
+            assert cnt[0, i] == 0 and jcnt[0, i] != 0, c.name
+            got = plx.replay_trace(tok[i].numpy(), litw[i].numpy(),
+                                   c.out_len, key[0], ref_data=c.ref)
+            assert got == c.raw, c.name
             continue
         np.testing.assert_array_equal(cnt[[1, 4, 5], i],
                                       jcnt[[1, 4, 5], i], err_msg=c.name)
@@ -120,7 +130,7 @@ def _twin():
 
 
 @pytest.mark.parametrize("key", [(15, False), (16, False), (21, False),
-                                 (17, True)])
+                                 (17, True), (25, True)])
 def test_plain_and_twin_match_reference(cases, key):
     sub = _group(cases, key)
     s, lens, tg, hs = le.inputs(sub)

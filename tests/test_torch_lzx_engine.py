@@ -177,3 +177,31 @@ def test_engine_declines_flagged_lane_and_bad_window():
                             "window size outside LZX's": 1}
     with pytest.raises(ValueError):
         CudaLzxEngine("cpu", segment_bytes=1000)
+
+
+@pytest.mark.parametrize("segment_bytes", [None, 32768])
+def test_engine_per_lane_declines_only_the_bad_lanes(segment_bytes):
+    """``per_lane=True``: the lanes that pass keep their bytes and only the
+    flagged or E8 lanes are None; in segments the declining batch's lanes
+    are None. A window outside LZX's gives a None for every lane."""
+    by_name = {c.name: c for c in le.lzx_edge_batch(seed=0)}
+    # the last two are longer than 32768 bytes: one segmented batch
+    sub = [by_name[n] for n in ("verbatim", "offset_beyond_stream",
+                                "e8_header", "multi_frame",
+                                "offset_past_frame_start")]
+    eng = CudaLzxEngine("cpu", segment_bytes=segment_bytes)
+    got = eng.decode_streams([c.stream for c in sub],
+                             [c.out_len for c in sub], 15,
+                             decline_on_intel=True, per_lane=True)
+    good = sub[0].raw
+    if segment_bytes is None:
+        assert got == [good, None, None, sub[3].raw, None]
+        assert eng.declines == {"flagged lane": 1,
+                                "intel E8 in chunked or DELTA streams": 1}
+    else:
+        assert got == [good, None, None, None, None]
+        assert eng.declines == {"flagged lane": 2,
+                                "intel E8 in chunked or DELTA streams": 1}
+    good = sub[0]
+    assert eng.decode_streams([good.stream], [good.out_len], 22,
+                              per_lane=True) == [None]
