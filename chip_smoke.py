@@ -71,12 +71,34 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     (crc_ms), and the device CRC op (ops/crc32.py) on the file's blocks
     beside host CRC-32;
 17. a 1 MiB SZDD file from lzss_c through create_szdd_decompressor(
-    engine="cuda") (LZSS as device tensor ops) beside engine="native".
+    engine="cuda") (LZSS as device tensor ops) beside engine="native";
+18. the corpus planner on corpus A (``build_corpus_a``: 64 cabinets, each
+    a 1 MiB MSZIP, a 1 MiB LZX at window 2^21, a 512 KiB Quantum and a
+    256 KiB NONE folder, 176 MiB out): extract_corpus(engine="cuda",
+    strict=True) cold and warm (K1, K3 and K4 each launched once), beside
+    engine="native" and the per-cabinet CabDecompressor(engine="cuda");
+    bytes equal the written files; the engine calls, lanes per launch,
+    host collect time and each engine's timings;
+19. corpus B, the bench cabinets of phases 5, 9 and 14, in one
+    extract_corpus beside the per-cabinet driver's MB/s of those phases;
+    then CudaMszipEngine(phase_b="host") against "device" on the plan's
+    MSZIP jobs, in turns;
+20. the port's calibrate_engines into a temporary file (its JSON
+    printed), read back by choose_engine through MSPACK_CALIBRATION;
+21. ``python -m libmspack_tpu_torch.cli.cabextract --engine cuda`` in a
+    subprocess under MSPACK_TPU_STRICT=1 on a corpus A cabinet and the
+    LZX bench cabinet: -d's files equal the inputs, -t's MD5s hashlib's;
+22. last (a kernel fault would poison the CUDA context): the port's
+    fuzz_mass with engine="cuda" on CAB (MSZIP, LZX and Quantum folders),
+    CHM, OAB and SZDD, seeded, 15 s each: no foreign exception, no CUDA
+    error after any archive, no byte mismatch with the scalar engine;
+    error-class differences are printed by class.
 
 Each kernel's launch count is set to 0 just before its main path runs and
 read just after (for a probe, its tool's main(), where a kernel replayed
 from a CUDA graph counts once per replay; K3's is its CAB LZX path's plus
-the OAB path's, each file's counted alone). The next-to-last line is
+the OAB path's, each file's counted alone; K1-K4 add the launches of
+phases 18-19, each run counted alone). The next-to-last line is
 a JSON object with each kernel's launches on the main path, its largest
 difference from the plain version, its time, the plain version's, and its
 bound: the larger of the bytes it must move over the card's memory rate
@@ -109,17 +131,9 @@ FOLDER_MB = {"mszip": 24, "lzx": 24, "quantum": 6}
 
 
 def build_corpus(total_bytes: int) -> bytes:
-    """bench.py:40-50, the same bytes."""
-    import numpy as np
-    rng = np.random.RandomState(7)
-    parts = []
-    text = (b"The quick brown fox jumps over the lazy dog. "
-            b"Pack my box with five dozen liquor jugs. ") * 40
-    while sum(map(len, parts)) < total_bytes:
-        parts.append(text)
-        parts.append(rng.randint(0, 64, 2048, dtype=np.uint8).tobytes() * 4)
-        parts.append(bytes(np.arange(256, dtype=np.uint8)) * 32)
-    return b"".join(parts)[:total_bytes]
+    """bench.py:40-50, the same bytes (``utils.build_corpus``)."""
+    from libmspack_tpu_torch import utils
+    return utils.build_corpus(total_bytes)
 
 
 def build_cab(corpus: bytes, compression: str) -> bytes:
@@ -437,13 +451,16 @@ class Clock:
 
 def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
         chm_mb=16, qtm_mb=24, reps=4, oab_mb=64, oab_big_mb=32,
-        oab_big_block=4 << 20, szdd_bytes=1 << 20):
+        oab_big_block=4 << 20, szdd_bytes=1 << 20, corpus_cabs=64,
+        calib_mb=(4, 24), fuzz_s=15):
     """All phases after the device check; returns the kernels' JSON.
 
     ``run("cpu", total_mb=6, edge_frame=4096, lzx_big=1 << 17, chm_mb=2,
     qtm_mb=1, reps=2, oab_mb=1, oab_big_mb=1, oab_big_block=1 << 19,
-    szdd_bytes=1 << 16)`` rehearses every phase on the CPU, with the
-    kernels' plain versions, before a run on the card."""
+    szdd_bytes=1 << 16, corpus_cabs=2, calib_mb=(0.25,), fuzz_s=2)``
+    rehearses every phase on the CPU, with the kernels' plain versions,
+    before a run on the card."""
+    import tempfile
     import threading
 
     import torch
@@ -461,10 +478,11 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     host.join()
     native.lib()   # raises if the host engine did not build
     clock.lap("build")
-    entries = mszip_phases(device, total_mb, edge_frame, reps, clock)
-    k3 = lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock)
+    bench = {}
+    entries = mszip_phases(device, total_mb, edge_frame, reps, clock, bench)
+    k3 = lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench)
     entries.append(k3)
-    entries.append(qtm_phases(device, qtm_mb, lzx_big, reps, clock))
+    entries.append(qtm_phases(device, qtm_mb, lzx_big, reps, clock, bench))
     entries.extend(probe_phases(device, clock))
     # K3's entry gains the OAB path's launches and comparisons
     oab_launches, e3 = oab_phases(device, oab_mb, oab_big_mb, oab_big_block,
@@ -474,6 +492,20 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     k3["launches"] += oab_launches
     k3["max_abs_err"] = max(k3["max_abs_err"], e3)
     szdd_phase(device, szdd_bytes, min(reps, 3), clock)
+    # the corpus planner's paths; their launches join each kernel's entry
+    counts = Launches(device)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        paths, want = build_corpus_a(td, corpus_cabs)
+        print(f"corpus A built in {time.perf_counter() - t0:.1f} s")
+        corpus_phases(device, paths, want, bench, min(reps, 3), counts,
+                      clock)
+        calibration_phase(device, calib_mb, clock)
+        cli_phase(device, paths[0], want[0], bench, clock)
+    print(f"launches on the planner paths: {counts.total}")
+    for e in entries:
+        e["launches"] += counts.total.get(e["name"], 0)
+    fuzz_phase(device, fuzz_s, clock)
     bad = [e["name"] for e in entries if e["max_abs_err"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: "
@@ -555,9 +587,10 @@ def k2_work(ntok, folders, nbytes):
     return k2_bytes, chain
 
 
-def mszip_phases(device, total_mb, edge_frame, reps, clock):
+def mszip_phases(device, total_mb, edge_frame, reps, clock, bench):
     """Phases 3-6 (MSZIP): K1 and K2 against their plain versions, the
-    MSZIP cabinet through the driver and through CudaMszipEngine."""
+    MSZIP cabinet through the driver and through CudaMszipEngine. Adds
+    the cabinet and the driver's warm MB/s to ``bench``."""
     import numpy as np
     import torch
 
@@ -671,6 +704,8 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock):
         nat.append(len(corpus) / (time.perf_counter() - t0) / 1e6)
     print(f"engine=native: cold {nat[0]:.1f} MB/s, warm best "
           f"{max(nat[1:]):.1f} MB/s")
+    bench["mszip"] = dict(blob=blob, corpus=corpus, cuda=max(mbs[1:]),
+                          native=max(nat[1:]))
     clock.lap("5 MSZIP cabinet through the driver")
 
     # 6. device phase B over the whole cabinet, and host phase B likewise
@@ -782,10 +817,11 @@ def k3_segments(cases, device, seg):
     return launches
 
 
-def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock):
+def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
     """Phases 7-11 (LZX): K3 against its plain version, the LZX cabinet
     through the driver and through CudaLzxEngine, and a CHM through its
-    driver. Returns K3's entry of the kernels line."""
+    driver. Returns K3's entry of the kernels line; adds the LZX cabinet
+    and the driver's warm MB/s to ``bench``."""
     import torch
 
     from libmspack_tpu_torch import (create_cab_decompressor,
@@ -892,6 +928,8 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock):
         nat.append(len(corpus) / (time.perf_counter() - t0) / 1e6)
     print(f"engine=native LZX: cold {nat[0]:.1f} MB/s, warm "
           f"best {max(nat[1:]):.1f} MB/s")
+    bench["lzx"] = dict(blob=blob, corpus=corpus, cuda=max(mbs[1:]),
+                        native=max(nat[1:]))
     clock.lap("9 LZX cabinet through the driver")
 
     # 10. CudaLzxEngine on all the folders in one call
@@ -1028,10 +1066,11 @@ def k4_segments(cases, device, seg):
     return launches
 
 
-def qtm_phases(device, total_mb, edge_big, reps, clock):
+def qtm_phases(device, total_mb, edge_big, reps, clock, bench):
     """Phases 12-14 (Quantum): K4 against its plain version, the Quantum
     cabinet through the driver and through CudaQtmEngine. Returns K4's
-    entry of the kernels line."""
+    entry of the kernels line; adds the cabinet and the driver's warm
+    MB/s to ``bench``."""
     import torch
 
     from libmspack_tpu_torch import create_cab_decompressor
@@ -1138,6 +1177,8 @@ def qtm_phases(device, total_mb, edge_big, reps, clock):
         nat.append(len(corpus) / (time.perf_counter() - t0) / 1e6)
     print(f"engine=native Quantum: cold {nat[0]:.1f} MB/s, warm best "
           f"{max(nat[1:]):.1f} MB/s")
+    bench["quantum"] = dict(blob=blob, corpus=corpus, cuda=max(mbs[1:]),
+                            native=max(nat[1:]))
     for _ in range(2):
         eng = CudaQtmEngine(device)
         t0 = time.perf_counter()
@@ -1315,6 +1356,343 @@ def szdd_phase(device, nbytes, reps, clock):
         print(f"engine={engine} SZDD: cold {mbs[0]:.1f} MB/s, warm best "
               f"{max(mbs[1:]):.1f} MB/s")
     clock.lap("17 SZDD")
+
+
+# corpus A's four folders a cabinet: (cab_c compression, window bits,
+# bytes); LZX at 2^21 is makecab's LZX:21, the usual setting of Windows
+# update and driver cabinets
+CORPUS_A = (("mszip", 16, MB), ("lzx", 21, MB), ("quantum", 16, MB // 2),
+            ("none", 16, MB // 4))
+
+
+def build_corpus_a(directory, n_cabs):
+    """Corpus A: ``n_cabs`` cabinets written into ``directory``, each with
+    the four folders of ``CORPUS_A`` holding two files apiece, distinct
+    slices of ``build_corpus``. Returns (paths, each cabinet's files as
+    ``{name: bytes}``). The encoders run on threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libmspack_tpu_torch.compress import cab_c
+
+    per = sum(n for _, _, n in CORPUS_A)
+    corpus = build_corpus(n_cabs * per)
+
+    def one(i):
+        base, folders, files = i * per, [], {}
+        for comp, wb, n in CORPUS_A:
+            cut = n * 3 // 5 + 17
+            pair = [(f"a{i:03d}_{comp}_{k}.bin", part) for k, part in
+                    enumerate((corpus[base:base + cut],
+                               corpus[base + cut:base + n]))]
+            folders.append(cab_c.FolderSpec(pair, comp, wb))
+            files.update(pair)
+            base += n
+        path = os.path.join(directory, f"a{i:03d}.cab")
+        with open(path, "wb") as fh:
+            fh.write(cab_c.write_cab(folders=folders))
+        return path, files
+
+    with ThreadPoolExecutor(8) as pool:
+        done = list(pool.map(one, range(n_cabs)))
+    return [p for p, _ in done], [f for _, f in done]
+
+
+def bench_files(codec, corpus):
+    """The files of ``build_cab(corpus, codec)``."""
+    fsz = FOLDER_MB[codec] << 20
+    return {f"f{i}.bin": corpus[i:i + fsz]
+            for i in range(0, len(corpus), fsz)}
+
+
+class Launches:
+    """K1-K4's launch counts on the paths it is handed: each path runs
+    with the counts set to 0 just before it and read just after."""
+
+    def __init__(self, device):
+        from libmspack_tpu_torch.ops import (cuda_inflate, cuda_lzx, cuda_qtm,
+                                             cuda_resolve)
+        self.key = "cuda" if device.type == "cuda" else "plain"
+        self.mods = {"k1_inflate": cuda_inflate, "k2_resolve": cuda_resolve,
+                     "k3_lzx": cuda_lzx, "k4_qtm": cuda_qtm}
+        self.total = dict.fromkeys(self.mods, 0)
+
+    def run(self, fn):
+        """``fn()``; returns (its result, the launches it made)."""
+        for m in self.mods.values():
+            m.LAUNCHES[self.key] = 0
+        out = fn()
+        got = {n: m.LAUNCHES[self.key] for n, m in self.mods.items()}
+        for n, k in got.items():
+            self.total[n] += k
+        return out, got
+
+
+def planner_run(srcs, engine, device, strict=None):
+    """One ``extract_corpus`` as its three steps, so that the plan's
+    counters can be read: (plan, files, seconds)."""
+    import torch
+
+    from libmspack_tpu_torch.parallel import planner
+
+    t0 = time.perf_counter()
+    plan = planner.plan_archives(srcs)
+    files = planner.archive_files(plan, planner.execute(
+        plan, engine=engine, device=device, strict=strict))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return plan, files, time.perf_counter() - t0
+
+
+def plan_report(name, plan, launches):
+    """Print a cuda planner run's engine calls, lanes per launch, host
+    times and each engine's timings."""
+    per = {"mszip": "k1_inflate", "lzx": "k3_lzx", "quantum": "k4_qtm"}
+    lanes = {c: (e.lanes if hasattr(e, "lanes") else
+                 sum(len(j.frames) for j in plan.jobs if j.comp_name == c))
+             for c, e in plan.engines.items()}
+    print(f"{name}: engine calls {dict(plan.calls)}, launches "
+          f"{ {c: launches[per[c]] for c in plan.engines} }, lanes "
+          f"{lanes}; host ms: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(plan.timings.items())))
+    for c, e in sorted(plan.engines.items()):
+        print(f"{name}: {c} engine timings (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(e.timings.items()))
+            + f"; declines {dict(e.declines)}")
+
+
+def corpus_phases(device, paths, want, bench, reps, counts, clock):
+    """Phases 18-19: the corpus planner. Corpus A (``paths``, the files
+    ``want``) through extract_corpus(engine="cuda", strict=True), cold and
+    warm, beside engine="native" and the per-cabinet driver; corpus B (the
+    bench cabinets of ``bench``) in one extract_corpus, beside the driver's
+    MB/s of phases 5, 9 and 14; then CudaMszipEngine's host against device
+    phase B on the plan's MSZIP jobs. Bytes must equal the inputs; each of
+    K1, K3 and K4 must launch once a codec group."""
+    import os
+
+    import torch
+
+    from libmspack_tpu_torch import create_cab_decompressor
+    from libmspack_tpu_torch.parallel.cuda_pipeline import CudaMszipEngine
+    from libmspack_tpu_torch.system import BytesSink
+
+    total = sum(len(b) for w in want for b in w.values())
+    print(f"corpus A: {len(paths)} cabinets, {total} bytes out of "
+          f"{sum(os.path.getsize(p) for p in paths)} bytes")
+    # 18. corpus A
+    mbs = []
+    for rep in range(reps):
+        (plan, files, dt), got = counts.run(
+            lambda: planner_run(paths, "cuda", device, strict=True))
+        if files != want:
+            raise AssertionError("planner engine=cuda, corpus A: bytes")
+        once = {"k1_inflate": 1, "k3_lzx": 1, "k4_qtm": 1}
+        if {k: got[k] for k in once} != once:
+            raise AssertionError(f"corpus A: launches {got}, want {once}")
+        mbs.append(total / dt / 1e6)
+    plan_report("corpus A planner engine=cuda (last run)", plan, got)
+    print(f"corpus A planner engine=cuda: cold {mbs[0]:.1f} MB/s, warm "
+          f"best {max(mbs[1:]):.1f} MB/s")
+    nat = []
+    for rep in range(reps):
+        _, files, dt = planner_run(paths, "native", device)
+        if files != want:
+            raise AssertionError("planner engine=native, corpus A: bytes")
+        nat.append(total / dt / 1e6)
+    print(f"corpus A planner engine=native: cold {nat[0]:.1f} MB/s, warm "
+          f"best {max(nat[1:]):.1f} MB/s")
+
+    def per_cabinet():
+        t0 = time.perf_counter()
+        for path, w in zip(paths, want):
+            d = create_cab_decompressor(engine="cuda", device=device,
+                                        strict=True)
+            for f in d.open(path).files:
+                sink = BytesSink()
+                d.extract(f, sink)
+                if sink.getvalue() != w[f.filename]:
+                    raise AssertionError(f"driver, {path}: {f.filename}")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    drv = []
+    for _ in range(2):
+        dt, got = counts.run(per_cabinet)
+        drv.append(total / dt / 1e6)
+    print(f"corpus A per-cabinet CabDecompressor(engine=cuda): cold "
+          f"{drv[0]:.1f} MB/s, warm {drv[1]:.1f} MB/s, launches of the "
+          f"warm run {got}")
+    clock.lap("18 planner, corpus A")
+
+    # 19. corpus B: the bench cabinets in one extract_corpus
+    codecs = ("mszip", "lzx", "quantum")
+    srcs = [bench[c]["blob"] for c in codecs]
+    wantb = [bench_files(c, bench[c]["corpus"]) for c in codecs]
+    totb = sum(len(bench[c]["corpus"]) for c in codecs)
+    mbs = []
+    for _ in range(2):
+        (plan, files, dt), got = counts.run(
+            lambda: planner_run(srcs, "cuda", device, strict=True))
+        if files != wantb:
+            raise AssertionError("planner engine=cuda, corpus B: bytes")
+        mbs.append(totb / dt / 1e6)
+    plan_report("corpus B planner engine=cuda (warm run)", plan, got)
+    nat = []
+    for _ in range(2):
+        _, files, dt = planner_run(srcs, "native", device)
+        if files != wantb:
+            raise AssertionError("planner engine=native, corpus B: bytes")
+        nat.append(totb / dt / 1e6)
+    # the per-cabinet driver's MB/s over the three cabinets, from its
+    # warm runs of phases 5, 9 and 14
+    drv = {k: totb / sum(len(bench[c]["corpus"]) / bench[c][k]
+                         for c in codecs) for k in ("cuda", "native")}
+    print(f"corpus B ({totb} bytes, 3 cabinets) planner engine=cuda: cold "
+          f"{mbs[0]:.1f} MB/s, warm {mbs[1]:.1f}; engine=native cold "
+          f"{nat[0]:.1f}, warm {nat[1]:.1f}; per-cabinet driver (phases "
+          f"5, 9, 14, warm) engine=cuda {drv['cuda']:.1f}, engine=native "
+          f"{drv['native']:.1f}; by codec, driver cuda " + ", ".join(
+              f"{c} {bench[c]['cuda']:.1f}" for c in codecs))
+    folders = [(j.frames, j.sizes) for j in plan.jobs
+               if j.comp_name == "mszip"]
+    want_m = bench["mszip"]["corpus"]
+    for pb in ("host", "device", "device", "host"):
+        eng = CudaMszipEngine(device, phase_b=pb)
+        t0 = time.perf_counter()
+        outs, got = counts.run(lambda: eng.decode_folders(folders))
+        dt = time.perf_counter() - t0
+        if outs is None or b"".join(outs) != want_m or \
+                sum(eng.declines.values()):
+            raise AssertionError(f"corpus B phase_b={pb}: bytes or "
+                                 f"declines {dict(eng.declines)}")
+        t = eng.timings
+        b_ms = t["k2_ms"] + t["bytes_pull_ms"] if pb == "device" else \
+            t["trace_pull_ms"] + t["host_resolve_ms"]
+        print(f"corpus B MSZIP jobs ({len(folders)} folders) "
+              f"CudaMszipEngine(phase_b={pb}): {len(want_m) / dt / 1e6:.1f} "
+              f"MB/s, phase B {b_ms:.3f} ms, total_ms "
+              f"{t['total_ms']:.3f}, K1/K2 launches "
+              f"{got['k1_inflate']}/{got['k2_resolve']}")
+    clock.lap("19 planner, corpus B")
+
+
+def calibration_phase(device, sizes_mb, clock):
+    """Phase 20: the port's calibrate_engines into a temporary file (its
+    JSON printed), then choose_engine reading it through
+    MSPACK_CALIBRATION."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from libmspack_tpu_torch import utils
+    from libmspack_tpu_torch.tools import calibrate_engines
+
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "calibration.json")
+        calibrate_engines.main(["--out", out, "--sizes"]
+                               + [str(x) for x in sizes_mb])
+        with open(out) as fh:
+            cal = json.load(fh)
+        old = os.environ.get("MSPACK_CALIBRATION")
+        os.environ["MSPACK_CALIBRATION"] = out
+        try:
+            if utils.engine_calibration() != cal:
+                raise AssertionError("engine_calibration did not read "
+                                     "MSPACK_CALIBRATION")
+            routes = {}
+            for codec in utils.CODECS:
+                cross = cal["cuda_crossover_bytes"][codec]
+                big = utils.choose_engine(1 << 40, codec)
+                want = "cuda" if cross is not None and \
+                    torch.cuda.is_available() else "native"
+                if big != want or (cross is not None and utils.choose_engine(
+                        cross - 1, codec) != "native"):
+                    raise AssertionError(f"choose_engine {codec}: {big}")
+                routes[codec] = big
+        finally:
+            if old is None:
+                del os.environ["MSPACK_CALIBRATION"]
+            else:
+                os.environ["MSPACK_CALIBRATION"] = old
+    print(f"calibration: choose_engine at 1 TiB routes {routes}")
+    clock.lap("20 calibration")
+
+
+def cli_phase(device, cab_path, want_a, bench, clock):
+    """Phase 21: ``python -m libmspack_tpu_torch.cli.cabextract --engine
+    cuda`` under MSPACK_TPU_STRICT=1 on one corpus A cabinet and the bench
+    LZX cabinet: -d's files equal the inputs, -t's MD5s equal hashlib's."""
+    import hashlib
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MSPACK_TPU_STRICT="1",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "libmspack_tpu_torch.cli.cabextract",
+           "--engine", "cuda", "--device", device.type]
+    want = dict(want_a, **bench_files("lzx", bench["lzx"]["corpus"]))
+    with tempfile.TemporaryDirectory() as td:
+        lzx = os.path.join(td, "lzx.cab")
+        with open(lzx, "wb") as fh:
+            fh.write(bench["lzx"]["blob"])
+        out = os.path.join(td, "out")
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + ["-q", "-d", out, cab_path, lzx], cwd=root,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        dt = time.perf_counter() - t0
+        if r.returncode:
+            raise AssertionError(f"cabextract -d: {r.returncode} {r.stderr}")
+        got = {}
+        for name in os.listdir(out):
+            with open(os.path.join(out, name), "rb") as fh:
+                got[name] = fh.read()
+        if got != want:
+            raise AssertionError("cabextract -d: files differ")
+        r = subprocess.run(cmd + ["-t", cab_path, lzx], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=600)
+        sums = {ln.split()[0]: ln.split()[-1] for ln in r.stdout.splitlines()
+                if "  OK  " in ln}
+        if r.returncode or sums != {n: hashlib.md5(b).hexdigest()
+                                    for n, b in want.items()}:
+            raise AssertionError(f"cabextract -t: {r.returncode} {r.stdout}")
+    print(f"cli: cabextract -d of {len(want)} files "
+          f"({sum(map(len, want.values()))} bytes) in {dt:.1f} s with the "
+          f"interpreter's start, equal; -t MD5s equal hashlib's")
+    clock.lap("21 cabextract CLI")
+
+
+def fuzz_phase(device, budget_s, clock):
+    """Phase 22, last: the port's fuzz_mass on ``device`` for CAB (MSZIP,
+    LZX and Quantum folders), CHM, OAB and SZDD, seeded, ``budget_s``
+    seconds each: no foreign exception, no CUDA error, no byte mismatch
+    with the scalar engine."""
+    from libmspack_tpu_torch.tools import fuzz_mass
+
+    arcs = fuzz_mass.build_archives()
+    bad = []
+    for kind in ("cab", "chm", "oab", "szdd"):
+        r = fuzz_mass.sweep(kind, arcs[kind], 1 << 30, seed=8,
+                            time_budget_s=budget_s, engine="cuda",
+                            device=device)
+        print(f"fuzz {kind}: {r['done']} rounds, {len(r['fails'])} "
+              f"failures, {len(r['cuda_errors'])} CUDA errors, "
+              f"{len(r['mismatches'])} byte mismatches with scalar, "
+              f"error-class differences (cuda, scalar) "
+              f"{dict(r['class_diffs'])}")
+        for f in (r["fails"] + r["cuda_errors"])[:5]:
+            print(f"fuzz {kind}:   {f}")
+        if r["fails"] or r["cuda_errors"] or r["mismatches"]:
+            bad.append(kind)
+    if bad:
+        raise AssertionError(f"fuzz failed on {bad}")
+    clock.lap("22 fuzz")
 
 
 PROBE_TOOLS = ("micro_vec", "micro_skel", "micro_copy", "mosaic_probe",

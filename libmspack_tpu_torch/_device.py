@@ -19,16 +19,22 @@ def strict_mode(strict=None) -> bool:
     return bool(strict)
 
 
+def reason_text(reasons) -> str:
+    """``reasons`` as text: a string as it is, a mapping of reason to count
+    (as an engine's ``declines`` holds them) as "reason xN, ..."."""
+    if isinstance(reasons, str):
+        return reasons
+    return ", ".join(f"{r} x{n}" if n > 1 else r
+                     for r, n in sorted(reasons.items()))
+
+
 def note_fallback(driver, path: str, reasons) -> None:
     """Record that the device path ``path`` of ``driver`` declined, for
-    ``reasons`` (a string, or a mapping of reason to count as an engine's
-    ``declines`` holds them): ``driver.fallback_reasons[path]`` becomes
-    ``"FallbackError: <message>"``, as the reference's ``{path: "Exc:
-    msg"}``; under ``driver.strict`` the ``FallbackError`` is raised."""
-    if not isinstance(reasons, str):
-        reasons = ", ".join(f"{r} x{n}" if n > 1 else r
-                            for r, n in sorted(reasons.items()))
-    exc = FallbackError(path, reasons or "declined")
+    ``reasons`` (``reason_text``'s argument):
+    ``driver.fallback_reasons[path]`` becomes ``"FallbackError:
+    <message>"``, as the reference's ``{path: "Exc: msg"}``; under
+    ``driver.strict`` the ``FallbackError`` is raised."""
+    exc = FallbackError(path, reason_text(reasons) or "declined")
     driver.fallback_reasons[path] = f"{type(exc).__name__}: {exc}"
     if driver.strict:
         raise exc

@@ -9,6 +9,9 @@ nothing of the JAX package; besides the imports, the build goes to the
 port's build directory, the wrappers of the entry points the port never
 calls are left out, as in ``msp_native.cpp``, and ``lzx_resolve_traces``
 takes one history per lane, of any length, instead of whole-window rows.
+``FolderBatch``/``mszip_folders`` (``libmspack_tpu/native/__init__.py:
+166-213``), ``lzx_decode`` (``:252-266``) and ``qtm_decode`` (``:510-517``)
+serve the corpus planner (``parallel/planner.py``).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ def lib():
             _build_error = f"native engine unavailable: {e}"
             raise RuntimeError(_build_error) from e
         lib_.msp_mszip_folder.restype = ctypes.c_int
+        lib_.msp_mszip_folders.restype = ctypes.c_int
         lib_.msp_lzx_decode.restype = ctypes.c_int
         lib_.msp_lzx_decode_ex.restype = ctypes.c_int
         lib_.msp_lzx_many.restype = ctypes.c_int
@@ -162,6 +166,59 @@ def mszip_folder(frames: list[bytes], sizes: list[int],
     return out[:total].tobytes()
 
 
+class FolderBatch:
+    """Pre-staged ctypes arguments for repeated decode of the same
+    folder set (benchmarks / hot loops) with a reusable output buffer."""
+
+    def __init__(self, folders: list[tuple[list[bytes], list[int]]]):
+        frames_flat: list[bytes] = []
+        sizes_flat: list[int] = []
+        folder_offsets = [0]
+        out_offsets = [0]
+        for frames, sizes in folders:
+            frames_flat.extend(frames)
+            sizes_flat.extend(sizes)
+            folder_offsets.append(len(frames_flat))
+            out_offsets.append(out_offsets[-1] + sum(sizes))
+        n = len(frames_flat)
+        self.n_folders = len(folders)
+        self.total = out_offsets[-1]
+        self.out_offsets = out_offsets
+        self._keepalive = frames_flat
+        self.ptrs = (ctypes.c_char_p * n)(*frames_flat)
+        self.lens = (ctypes.c_uint64 * n)(*[len(f) for f in frames_flat])
+        self.szs = (ctypes.c_uint32 * n)(*sizes_flat)
+        self.foffs = (ctypes.c_int64 * len(folder_offsets))(*folder_offsets)
+        self.ooffs = (ctypes.c_int64 * len(out_offsets))(*out_offsets)
+        import numpy as np
+        self.out = np.zeros(max(self.total, 1), np.uint8)
+
+    def run(self, n_threads: int | None = None) -> bool:
+        """Decode into self.out; True on success."""
+        L = lib()
+        r = L.msp_mszip_folders(
+            ctypes.cast(self.ptrs, ctypes.POINTER(ctypes.c_char_p)),
+            self.lens, self.szs, self.foffs, self.n_folders,
+            self.out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            self.ooffs, n_threads or default_threads())
+        return r == 0
+
+    def views(self):
+        """Zero-copy per-folder views into the output buffer."""
+        mv = memoryview(self.out)
+        return [mv[self.out_offsets[i] : self.out_offsets[i + 1]]
+                for i in range(self.n_folders)]
+
+
+def mszip_folders(folders: list[tuple[list[bytes], list[int]]],
+                  n_threads: int | None = None) -> list[bytes] | None:
+    """Decode many folders with one thread pool. None on any failure."""
+    batch = FolderBatch(folders)
+    if not batch.run(n_threads):
+        return None
+    return [bytes(v) for v in batch.views()]
+
+
 def lzss_decompress(data: bytes, mode: int = 0,
                     max_out: int | None = None) -> bytes:
     L = lib()
@@ -197,6 +254,22 @@ def lzx_decode_into(stream, stream_len: int, window_bits: int,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.c_uint64(out.nbytes))
     return r == 0
+
+
+def lzx_decode(stream: bytes, window_bits: int, reset_interval: int,
+               out_len: int, is_delta: bool = False,
+               ref_data: bytes | None = None) -> bytes | None:
+    """Decode one LZX stream (folder / CHM section / OAB block).
+
+    Returns None when the engine flags anything needing the scalar
+    path's exact reference semantics."""
+    import numpy as np
+    out = np.empty(max(out_len, 1), np.uint8)
+    if not lzx_decode_into(stream, len(stream), window_bits,
+                           reset_interval, out, out_len, is_delta,
+                           ref_data):
+        return None
+    return out[:out_len].tobytes()
 
 
 def lzx_chunks_into(stream, chunk_offsets: list[int], window_bits: int,
@@ -342,6 +415,15 @@ def qtm_decode_into(stream, stream_len: int, window_bits: int, out,
                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                          ctypes.c_uint64(out.nbytes))
     return r == 0
+
+
+def qtm_decode(stream: bytes, window_bits: int, out_len: int) -> bytes | None:
+    """Decode one Quantum stream (CAB folder with 0xFF block trailers)."""
+    import numpy as np
+    out = np.empty(max(out_len, 1), np.uint8)
+    if not qtm_decode_into(stream, len(stream), window_bits, out, out_len):
+        return None
+    return out[:out_len].tobytes()
 
 
 def qtm_encode(data: bytes, window_bits: int,

@@ -16,9 +16,11 @@
 // Exposed as a flat C ABI consumed via ctypes (no pybind11 in image).
 //
 // The port's copy of libmspack_tpu/native/msp_native.cpp, with the entry
-// points the port never calls left out (the MSZIP-only pipeline, the
-// many-folder MSZIP and many-stream LZX encode batches); built by g++ into
-// libmspack_tpu_torch/_build/.
+// points the port never calls left out (the MSZIP-only pipeline and the
+// many-stream LZX encode batch); built by g++ into
+// libmspack_tpu_torch/_build/. msp_mszip_folders, the many-folder MSZIP
+// decode the corpus planner calls, is libmspack_tpu/native/
+// msp_native.cpp:2226-2278.
 
 #include <algorithm>
 #include <atomic>
@@ -2225,6 +2227,61 @@ int msp_mszip_folder(const uint8_t* const* frames, const uint64_t* frame_lens,
   }
   if (total > out_cap) return 98;
   return resolve_folder(toks.data(), n_frames, out, out_cap);
+}
+
+// Decode many folders concurrently (folder-level + frame-level threads).
+// frame_ptrs/frame_lens are flattened; folder_offsets[i] is the first
+// frame index of folder i (n_folders+1 entries, last = total frames).
+// out_offsets[i] similarly into `out`.
+int msp_mszip_folders(const uint8_t* const* frame_ptrs,
+                      const uint64_t* frame_lens, const uint32_t* sizes,
+                      const int64_t* folder_offsets, int n_folders,
+                      uint8_t* out, const int64_t* out_offsets,
+                      int n_threads) {
+  // phase A over ALL frames with one pool
+  int64_t total_frames = folder_offsets[n_folders];
+  std::vector<FrameTokens> toks(total_frames);
+  std::atomic<int64_t> next(0);
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= total_frames) break;
+      tokenize_frame(frame_ptrs[i], frame_lens[i], &toks[i]);
+    }
+  };
+  int nt = n_threads < 1 ? 1 : n_threads;
+  {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; t++) ths.emplace_back(worker);
+    for (auto& t : ths) t.join();
+  }
+  // validate
+  for (int64_t i = 0; i < total_frames; i++) {
+    if (toks[i].err) return 100 + toks[i].err;
+    if (toks[i].out_len != sizes[i]) return 99;
+  }
+  // phase B per folder, folder-parallel
+  std::atomic<int> nf(0);
+  std::atomic<int> err(0);
+  auto resolver = [&]() {
+    for (;;) {
+      int f = nf.fetch_add(1);
+      if (f >= n_folders) break;
+      int r = resolve_folder(
+          toks.data() + folder_offsets[f],
+          (int)(folder_offsets[f + 1] - folder_offsets[f]),
+          out + out_offsets[f],
+          (uint64_t)(out_offsets[f + 1] - out_offsets[f]));
+      if (r) err.store(r);
+    }
+  };
+  {
+    std::vector<std::thread> ths;
+    int nt2 = nt < n_folders ? nt : n_folders;
+    for (int t = 0; t < nt2; t++) ths.emplace_back(resolver);
+    for (auto& t : ths) t.join();
+  }
+  return err.load();
 }
 
 

@@ -145,14 +145,18 @@ class CudaMszipEngine(_Engine):
             raise ValueError(f"phase_b must be host or device: {phase_b}")
         super().__init__(device)
         self.phase_b = phase_b
+        # the folders of the last call that K1 declined (flagged, or above
+        # the trace budget) and the native engine decoded again
+        self.redecoded: list[int] = []
 
     # -- public ----------------------------------------------------------
 
-    def decode_folders(self, folders, n_threads=None):
+    def decode_folders(self, folders, n_threads=None, per_folder=False):
         """folders: [(frames without 'CK', sizes)] as native.mszip_folders
         takes them. Returns the bytes of each folder, or None when a
         flagged folder fails its native re-decode as well (the caller's
-        scalar path then raises the reference's error)."""
+        scalar path then raises the reference's error); with
+        ``per_folder`` always the list, None only in such folders."""
         t0 = time.perf_counter()
         offsets = np.zeros(len(folders) + 1, np.int64)
         np.cumsum([sum(s) for _, s in folders], out=offsets[1:])
@@ -175,12 +179,17 @@ class CudaMszipEngine(_Engine):
         for h in inflight:
             self._finish(h, folders, out, offsets, failed, n_threads)
         self._add("total_ms", t0, time.perf_counter(), host=True)
-        for fi in sorted(failed):
+        self.redecoded = sorted(failed)
+        lost = set()
+        for fi in self.redecoded:
             blob = native.mszip_folder(*folders[fi], n_threads)
             if blob is None:
-                return None
+                if not per_folder:
+                    return None
+                lost.add(fi)
+                continue
             out[offsets[fi]:offsets[fi + 1]] = np.frombuffer(blob, np.uint8)
-        return [out[offsets[i]:offsets[i + 1]].tobytes()
+        return [None if i in lost else out[offsets[i]:offsets[i + 1]].tobytes()
                 for i in range(len(folders))]
 
     # -- batching --------------------------------------------------------
@@ -628,25 +637,31 @@ class CudaQtmEngine(_StreamEngine):
 
     ``decode_streams`` returns the bytes of every stream, or None when it
     declines (a flagged lane, a resolver error); the caller's scalar path
-    then raises the reference's error. Every decline is counted in
-    ``declines``. ``wrap_spans`` holds, per stream of the last call, the
+    then raises the reference's error. With ``per_lane`` (CAB folders are
+    independent streams) it always returns the list, None only in the
+    lanes that declined. Every decline is counted in ``declines``, once a
+    launch. ``wrap_spans`` holds, per stream of the last call, the
     ``wrap_spans`` of its matches that crossed a window lap end."""
 
-    def decode_streams(self, streams, out_lens, window_bits, n_threads=None):
+    def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
+                       per_lane=False):
         """streams: list of bytes; out_lens: their decoded sizes."""
         self.wrap_spans = [(np.zeros(0, np.int64),) * 2 for _ in streams]
         if not streams:
             return []
+        declined = [None] * len(streams) if per_lane else None
         if not native.available():
             self.declines["native resolver unavailable"] += 1
-            return None
+            return declined
         if not 10 <= window_bits <= 21:
             self.declines["window size outside Quantum's"] += 1
-            return None
+            return declined
         job = dict(streams=streams, out_lens=list(out_lens),
                    window_bits=window_bits, n_threads=n_threads,
-                   outs=[None] * len(streams))
-        return job["outs"] if self._run(job) else None
+                   per_lane=per_lane, outs=[None] * len(streams))
+        # per_lane: a segmented batch that declines stops the run; its lanes
+        # and those of the batches after it stay None
+        return job["outs"] if self._run(job) or per_lane else None
 
     def _upload(self, idxs, job):
         streams, lens = cq.pack_streams([job["streams"][i] for i in idxs])
@@ -669,34 +684,48 @@ class CudaQtmEngine(_StreamEngine):
         return dict(k=k, idxs=idxs, sizes=sizes, tok=tok, litw=litw,
                     cnt=cnt, marks=(e0, e1, e2))
 
-    def _note_wraps(self, i, tok, cnt, lane, base, wb):
-        """Add stream i's lap-crossing matches of one launch (lane
-        ``lane``, output position ``base`` before it)."""
-        if cnt[4, lane]:
-            s, e = wrap_spans(tok[lane, :cnt[2, lane]], base, wb)
+    def _note_wraps(self, i, tok, c, base, wb):
+        """Add stream i's lap-crossing matches of one launch (its token row
+        ``tok`` and counts column ``c``, output position ``base`` before
+        it)."""
+        if c[4]:
+            s, e = wrap_spans(tok[:c[2]], base, wb)
             old = self.wrap_spans[i]
             self.wrap_spans[i] = (np.concatenate([old[0], s]),
                                   np.concatenate([old[1], e]))
 
     def _finish(self, h, job):
+        """Phase B of one launch. Without ``per_lane`` a flagged lane
+        declines the call (False); with it only the lanes that passed are
+        resolved and the others stay None."""
         idxs, sizes = h["idxs"], h["sizes"]
         n = len(idxs)
         with self._on(h["k"]):
-            cnt = h["cnt"].cpu().numpy()
+            cnt = h["cnt"].cpu().numpy()[:, :n]
             e0, e1, e2 = h["marks"]
             self._add("upload_ms", e0, e1)
             self._add("k4_ms", e1, e2)
-            if not self._counts_ok(cnt, slice(0, n), sizes):
-                return False
-            tok, litw = self._pull(h["tok"], h["litw"], cnt[2, :n])
-            parts = self._resolve(tok, litw, sizes, [0] * n, [0] * n, None,
+            bad = (cnt[0] != 0) | (cnt[1] != np.asarray(sizes))
+            if bad.any():
+                self.declines["flagged lane"] += 1
+                if not job["per_lane"]:
+                    return False
+            good = np.flatnonzero(~bad)
+            if not len(good):
+                return True
+            tok, litw = self._pull(h["tok"], h["litw"], cnt[2, good])
+            if len(good) < n:
+                tok, litw = tok[good], litw[good]
+            parts = self._resolve(tok, litw, [sizes[j] for j in good],
+                                  [0] * len(good), [0] * len(good), None,
                                   job)
         if parts is None:
-            return False
-        for j, i in enumerate(idxs):
-            self._note_wraps(i, tok, cnt, j, 0, job["window_bits"])
-            job["outs"][i] = parts[j].tobytes()
-        self.n_decoded += n
+            return job["per_lane"]
+        for r, j in enumerate(good):
+            self._note_wraps(idxs[j], tok[r], cnt[:, j], 0,
+                             job["window_bits"])
+            job["outs"][idxs[j]] = parts[r].tobytes()
+        self.n_decoded += len(good)
         return True
 
     def _segmented(self, idxs, seg, job):
@@ -730,7 +759,7 @@ class CudaQtmEngine(_StreamEngine):
                 return False
             for j, i in enumerate(idxs):
                 if targets[j] > pos[j]:
-                    self._note_wraps(i, tok, cnt, j, pos[j], wb)
+                    self._note_wraps(i, tok[j], cnt[:, j], pos[j], wb)
                     parts[j][pos[j]:targets[j]] = got[j]
                     tails[j] = np.concatenate([tails[j], got[j]])[
                         -len(tails[j]):]

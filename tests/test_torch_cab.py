@@ -285,9 +285,11 @@ def test_port_builds_the_bench_cabinets(compression):
 
 
 def test_port_imports_no_jax():
-    """Every port path, its inputs made by the port's own writers, and the
-    probe tools, in a process that must end with neither jax, nor bench,
-    nor any module of the JAX package or of tools/ loaded."""
+    """Every port path, its inputs made by the port's own writers, the
+    probe tools, the corpus planner with its routing and calibration, the
+    CLI tools and the fuzz runner, in a process that must end with neither
+    jax, nor bench, nor any module of the JAX package or of tools/
+    loaded."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -350,6 +352,35 @@ def test_port_imports_no_jax():
         "assert checksum.cab_checksum(data, device='cpu') >= 0\n"
         "assert digest.verify_frames(__import__('torch').zeros((1, 8), "
         "dtype=__import__('torch').uint8), [0], [b''])\n"
+        "import os, tempfile\n"
+        "from libmspack_tpu_torch import utils\n"
+        "from libmspack_tpu_torch.parallel import planner\n"
+        "from libmspack_tpu_torch.cli import cabextract, cabinfo, cabsplit\n"
+        "from libmspack_tpu_torch.cli import wince\n"
+        "from libmspack_tpu_torch.tools import calibrate_engines, fuzz_mass\n"
+        "mix = cab_c.write_cab(folders=[cab_c.FolderSpec([('m', data)]),\n"
+        "    cab_c.FolderSpec([('l', data)], 'lzx', 21),\n"
+        "    cab_c.FolderSpec([('q', data)], 'quantum')])\n"
+        "for e in ('cuda', 'native', 'auto'):\n"
+        "    got = planner.extract_corpus([mix], engine=e, device='cpu',\n"
+        "                                 strict=True)\n"
+        "    assert got == [dict.fromkeys('mlq', data)], e\n"
+        "assert utils.choose_engine(1, 'lzx') in ('native', 'scalar')\n"
+        "cal = calibrate_engines.calibrate(sizes_mb=(1 / 16,), reps=1)\n"
+        "assert set(cal['cuda_crossover_bytes']) == set(utils.CODECS)\n"
+        "import contextlib, io\n"
+        "with tempfile.TemporaryDirectory() as td, \\\n"
+        "        contextlib.redirect_stdout(io.StringIO()):\n"
+        "    path = os.path.join(td, 'mix.cab')\n"
+        "    open(path, 'wb').write(mix)\n"
+        "    assert cabextract.main(['-q', '-d', td, '--device', 'cpu',\n"
+        "                            path]) == 0\n"
+        "    assert open(os.path.join(td, 'l'), 'rb').read() == data\n"
+        "    assert cabinfo.main([path]) == 0\n"
+        "    assert cabsplit.split_cabinet(path) is None\n"
+        "arcs = fuzz_mass.build_archives()\n"
+        "r = fuzz_mass.sweep('cab', arcs['cab'], 2, 0, device='cpu')\n"
+        "assert not (r['fails'] or r['mismatches']), r\n"
         "bad = [m for m in sys.modules if m in ('jax', 'bench', 'devtime')\n"
         "       or m.split('.')[0] in ('libmspack_tpu', 'tools')]\n"
         "assert not bad, bad\n"
