@@ -88,6 +88,23 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
 21. ``python -m libmspack_tpu_torch.cli.cabextract --engine cuda`` in a
     subprocess under MSPACK_TPU_STRICT=1 on a corpus A cabinet and the
     LZX bench cabinet: -d's files equal the inputs, -t's MD5s hashlib's;
+23. engine="torch" (the JAX package's "jax" engine as tensor ops, no
+    kernel) under strict mode on the archives of phases 5, 9, 11, 16 and
+    17 (the MSZIP and LZX cabinets, the CHM, the 64 MiB OAB full download,
+    the SZDD file) beside engine="cuda" and "native" on each: bytes equal,
+    MB/s, the ops' phase A and B ms, peak device memory; a decline prints
+    its reasons (each one of the JAX package's) and the bytes are checked
+    with strict=False; then entry()'s forward step and the bitview, E8
+    and MSCF-search ops on the card against the host;
+24. the mesh (parallel/mesh.py on torch.distributed): dryrun_multichip(1)
+    on NCCL and dryrun_multichip(4) over gloo with four ranks on the one
+    card (the JAX package's three dry-run cases, bit-exact on every rank;
+    K1, K3 and K4 launched, their plain versions never, no decline), and
+    decode_cab_multihost over 2 gloo ranks; each case's seconds; every
+    rank holds each of its K1, K3 and K4 launches to the kernel's plain
+    version on CPU copies of the same inputs (``ops/shadow.py``: counts,
+    state records, live tokens), and the largest difference joins the
+    kernel's max_abs_err;
 22. last (a kernel fault would poison the CUDA context): the port's
     fuzz_mass with engine="cuda" on CAB (MSZIP, LZX and Quantum folders),
     CHM, OAB and SZDD, seeded, 15 s each: no foreign exception, no CUDA
@@ -98,7 +115,9 @@ Each kernel's launch count is set to 0 just before its main path runs and
 read just after (for a probe, its tool's main(), where a kernel replayed
 from a CUDA graph counts once per replay; K3's is its CAB LZX path's plus
 the OAB path's, each file's counted alone; K1-K4 add the launches of
-phases 18-19, each run counted alone). The next-to-last line is
+phases 18-19, each run counted alone, and K1, K3 and K4 those of phase
+24's paths, counted in each spawned rank and summed). The next-to-last
+line is
 a JSON object with each kernel's launches on the main path, its largest
 difference from the plain version, its time, the plain version's, and its
 bound: the larger of the bytes it must move over the card's memory rate
@@ -415,6 +434,19 @@ def extract_all(d, blob):
     return b"".join(parts)
 
 
+def extract_chm(d, blob):
+    """{name: bytes} of every file of a CHM (directory order)."""
+    from libmspack_tpu_torch.system import BytesSink
+
+    h = d.open(blob)
+    out = {}
+    for f in h.files:
+        sink = BytesSink()
+        d.extract(f, sink)
+        out[f.filename] = sink.getvalue()
+    return out
+
+
 DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
             "k3_lzx_kernel", "k4_qtm_kernel")
 
@@ -452,14 +484,15 @@ class Clock:
 def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
         chm_mb=16, qtm_mb=24, reps=4, oab_mb=64, oab_big_mb=32,
         oab_big_block=4 << 20, szdd_bytes=1 << 20, corpus_cabs=64,
-        calib_mb=(4, 24), fuzz_s=15):
+        calib_mb=(4, 24), fuzz_s=15, torch_kb=None):
     """All phases after the device check; returns the kernels' JSON.
 
     ``run("cpu", total_mb=6, edge_frame=4096, lzx_big=1 << 17, chm_mb=2,
     qtm_mb=1, reps=2, oab_mb=1, oab_big_mb=1, oab_big_block=1 << 19,
-    szdd_bytes=1 << 16, corpus_cabs=2, calib_mb=(0.25,), fuzz_s=2)``
-    rehearses every phase on the CPU, with the kernels' plain versions,
-    before a run on the card."""
+    szdd_bytes=1 << 16, corpus_cabs=2, calib_mb=(0.25,), fuzz_s=2,
+    torch_kb=128)`` rehearses every phase on the CPU, with the kernels'
+    plain versions, before a run on the card. ``torch_kb`` gives phase 23
+    copies of the bench's archives cut to that many KiB (``torch_small``)."""
     import tempfile
     import threading
 
@@ -486,12 +519,12 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     entries.extend(probe_phases(device, clock))
     # K3's entry gains the OAB path's launches and comparisons
     oab_launches, e3 = oab_phases(device, oab_mb, oab_big_mb, oab_big_block,
-                                  min(reps, 3), clock)
+                                  min(reps, 3), clock, bench)
     print(f"K3 launches: CAB LZX path {k3['launches']}, OAB path "
           f"{oab_launches}")
     k3["launches"] += oab_launches
     k3["max_abs_err"] = max(k3["max_abs_err"], e3)
-    szdd_phase(device, szdd_bytes, min(reps, 3), clock)
+    szdd_phase(device, szdd_bytes, min(reps, 3), clock, bench)
     # the corpus planner's paths; their launches join each kernel's entry
     counts = Launches(device)
     with tempfile.TemporaryDirectory() as td:
@@ -505,6 +538,14 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     print(f"launches on the planner paths: {counts.total}")
     for e in entries:
         e["launches"] += counts.total.get(e["name"], 0)
+    torch_phase(device, torch_small(bench, torch_kb << 10) if torch_kb
+                else bench, clock)
+    mesh, mesh_err = mesh_phase(device, clock)
+    print(f"launches on the mesh paths: {mesh}; largest differences from "
+          f"the plain versions there: {mesh_err}")
+    for e in entries:
+        e["launches"] += mesh.get(e["name"], 0)
+        e["max_abs_err"] = max(e["max_abs_err"], mesh_err.get(e["name"], 0))
     fuzz_phase(device, fuzz_s, clock)
     bad = [e["name"] for e in entries if e["max_abs_err"]]
     if bad:
@@ -827,7 +868,6 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
     from libmspack_tpu_torch import (create_cab_decompressor,
                                      create_chm_decompressor)
     from libmspack_tpu_torch.compress import chm_c
-    from libmspack_tpu_torch.system import BytesSink
     from libmspack_tpu_torch import lzx_edge_cases as le
     from libmspack_tpu_torch.ops import cuda_lzx as cl
     from libmspack_tpu_torch.parallel.cuda_pipeline import CudaLzxEngine
@@ -972,22 +1012,12 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
           f"{pms:.1f} ms, equal")
     del tok, litw, cnt
 
-    def chm_extract(c):
-        """{name: bytes} of every section-1 file (directory order)."""
-        h = c.open(chm)
-        out = {}
-        for f in h.files:
-            sink = BytesSink()
-            c.extract(f, sink)
-            out[f.filename] = sink.getvalue()
-        return out
-
     cl.LAUNCHES["cuda"] = cl.LAUNCHES["plain"] = 0
     runs = []
     for _ in range(reps):
         c = create_chm_decompressor(engine="cuda", device=device)
         t0 = time.perf_counter()
-        out = chm_extract(c)
+        out = extract_chm(c, chm)
         runs.append(time.perf_counter() - t0)
         eng = c.cuda_engine
         if out != content:
@@ -1007,11 +1037,12 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
     for _ in range(reps):
         c = create_chm_decompressor(engine="native")
         t0 = time.perf_counter()
-        if chm_extract(c) != content:
+        if extract_chm(c, chm) != content:
             raise AssertionError("engine=native CHM: bytes differ")
         nat.append(total / (time.perf_counter() - t0) / 1e6)
     print(f"engine=native CHM: cold {nat[0]:.1f} MB/s, warm "
           f"best {max(nat[1:]):.1f} MB/s")
+    bench["chm"] = dict(blob=chm, want=content)
     clock.lap("11 CHM through the driver")
     return entry("k3_lzx", "lzx.cu", "libmspack_tpu/ops/pallas_lzx.py:99",
                  k3_launches, e3, k3_ms, k3_plain_ms, k3_bytes, k3_chain)
@@ -1229,7 +1260,7 @@ def oab_inputs(oab_mb, big_mb, big_block):
     return files
 
 
-def oab_phases(device, oab_mb, big_mb, big_block, reps, clock):
+def oab_phases(device, oab_mb, big_mb, big_block, reps, clock, bench):
     """Phase 16 (OAB on K3): K3 against its plain version at each file's
     launch (all its blocks of one window, one lane each, DELTA with the
     reference data's budget), then each file through
@@ -1237,7 +1268,8 @@ def oab_phases(device, oab_mb, big_mb, big_block, reps, clock):
     beside engine="native": bytes equal, K3 launched, every LZX block of a
     window in one engine call, no decline (strict mode raises on one); the
     engine's phase times and the CRC op's beside host CRC-32. Returns (K3
-    launches, largest difference from the plain version)."""
+    launches, largest difference from the plain version); keeps the full
+    download in 64 KiB blocks in ``bench``."""
     import torch
 
     from libmspack_tpu_torch import create_oab_decompressor
@@ -1249,6 +1281,7 @@ def oab_phases(device, oab_mb, big_mb, big_block, reps, clock):
         return cl.LAUNCHES["cuda" if device.type == "cuda" else "plain"]
 
     files = oab_inputs(oab_mb, big_mb, big_block)
+    bench["oab"] = dict(blob=files[0][1], want=files[0][2])
     clock.lap("16 OAB inputs")
     err, launches = 0, 0
     for name, blob, want, base in files:
@@ -1331,7 +1364,7 @@ def oab_phases(device, oab_mb, big_mb, big_block, reps, clock):
     return launches, err
 
 
-def szdd_phase(device, nbytes, reps, clock):
+def szdd_phase(device, nbytes, reps, clock, bench):
     """Phase 17: an SZDD file of ``nbytes`` of the bench corpus from
     ``lzss_c`` through create_szdd_decompressor(engine="cuda") (LZSS as
     device tensor ops) cold and warm, beside engine="native": bytes
@@ -1342,6 +1375,7 @@ def szdd_phase(device, nbytes, reps, clock):
     t0 = time.perf_counter()
     data = build_corpus(nbytes)
     blob = lzss_c.szdd_compress(data)
+    bench["szdd"] = dict(blob=blob, want=data)
     print(f"SZDD: {len(data)} bytes in {len(blob)}, built in "
           f"{time.perf_counter() - t0:.2f} s")
     for engine in ("cuda", "native"):
@@ -1666,6 +1700,223 @@ def cli_phase(device, cab_path, want_a, bench, clock):
           f"({sum(map(len, want.values()))} bytes) in {dt:.1f} s with the "
           f"interpreter's start, equal; -t MD5s equal hashlib's")
     clock.lap("21 cabextract CLI")
+
+
+def torch_small(bench, nbytes):
+    """Phase 23's archives for a rehearsal on the CPU: ``bench``'s own,
+    each built again by the same builder from the first ``nbytes`` of what
+    it decodes to (the CHM from its first four topics). A bench LZX block
+    spans 32 frames, which the tensor ops decode in the (64 frames, 8 MiB)
+    bucket: 2^26 bit positions, some 20 GB."""
+    from libmspack_tpu_torch.compress import chm_c, lzss_c
+
+    mszip, lzx = (bench[c]["corpus"][:nbytes] for c in ("mszip", "lzx"))
+    topics = {k: v[:nbytes // 4]
+              for k, v in list(bench["chm"]["want"].items())[:4]}
+    oab, szdd = (bench[c]["want"][:nbytes] for c in ("oab", "szdd"))
+    return {"mszip": dict(blob=build_cab(mszip, "mszip"), corpus=mszip),
+            "lzx": dict(blob=build_cab(lzx, "lzx"), corpus=lzx),
+            "chm": dict(blob=chm_c.write_chm(list(topics.items())),
+                        want=topics),
+            "oab": dict(blob=build_oab(oab), want=oab),
+            "szdd": dict(blob=lzss_c.szdd_compress(szdd), want=szdd)}
+
+
+def torch_archives(bench):
+    """Phase 23's archives: (name, format, file, what it decodes to)."""
+    return [("MSZIP cabinet", "cab", bench["mszip"]["blob"],
+             bench["mszip"]["corpus"]),
+            ("LZX cabinet", "cab", bench["lzx"]["blob"],
+             bench["lzx"]["corpus"]),
+            ("CHM", "chm", bench["chm"]["blob"], bench["chm"]["want"]),
+            ("OAB full 64 KiB blocks", "oab", bench["oab"]["blob"],
+             bench["oab"]["want"]),
+            ("SZDD", "szdd", bench["szdd"]["blob"], bench["szdd"]["want"])]
+
+
+def _decode(fmt, engine, device, blob, strict):
+    """One archive through one engine's driver: (driver, output)."""
+    import libmspack_tpu_torch as lt
+
+    kw = {"device": device} if engine in ("torch", "cuda") else {}
+    if fmt != "szdd" and engine != "native":
+        kw["strict"] = strict
+    d = getattr(lt, f"create_{fmt}_decompressor")(engine=engine, **kw)
+    if fmt == "cab":
+        return d, extract_all(d, blob)
+    if fmt == "chm":
+        return d, extract_chm(d, blob)
+    return d, d.decompress_bytes(blob)
+
+
+def torch_phase(device, bench, clock):
+    """Phase 23: engine="torch" (the JAX package's "jax" engine as PyTorch
+    tensor ops) on the archives of phases 5, 9, 11, 16 and 17 under strict
+    mode (the MSZIP cabinet twice, cold and warm; every other archive, and
+    the other engines, one run: a run of the LZX cabinet or the OAB file
+    takes about a minute), beside engine="cuda" and "native" on the same
+    archive: bytes equal;
+    MB/s, the ops' phase A and B times and the peak device memory (on the
+    card). Where the ops decline (strict raises), the reasons and
+    counts are printed, each must be one of the JAX package's decline
+    texts, and the bytes are checked with strict=False. Then entry()'s
+    forward step on the device (each frame's decoded length) and the
+    bitview, E8 and MSCF-search ops against their host results."""
+    import numpy as np
+    import torch
+
+    from libmspack_tpu_torch import FallbackError
+    from libmspack_tpu_torch import entry as port_entry
+    from libmspack_tpu_torch.codecs.lzx import _e8_transform
+    from libmspack_tpu_torch.ops import bitview, e8, search
+    from libmspack_tpu_torch.ops import inflate as ti
+    from libmspack_tpu_torch.ops import lzx as tl
+
+    known = set(ti.DECLINE_REASONS) | set(tl.DECLINE_REASONS)
+    cuda = device.type == "cuda"
+    for k, (name, fmt, blob, want) in enumerate(torch_archives(bench)):
+        nbytes = sum(map(len, want.values())) if fmt == "chm" else len(want)
+        for engine in ("torch", "cuda", "native"):
+            strict, line = engine != "native", []
+            runs = 2 if engine == "torch" and k == 0 else 1
+            for rep in range(runs):
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    d, out = _decode(fmt, engine, device, blob, strict)
+                except FallbackError as e:
+                    if engine != "torch":
+                        raise
+                    print(f"engine=torch {name}: strict mode raised {e}")
+                    strict = False
+                    d, out = _decode(fmt, engine, device, blob, strict)
+                if cuda:
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if out != want:
+                    raise AssertionError(f"engine={engine} {name}: bytes "
+                                         "differ")
+                declines = dict(getattr(d, "torch_declines", {}))
+                if declines:
+                    print(f"engine=torch {name} declines: {declines}")
+                    unknown = set(declines) - known
+                    if unknown:
+                        raise AssertionError(f"{name}: declines that are not "
+                                             f"the JAX package's: {unknown}")
+                timings = getattr(d, "torch_timings", None)
+                if timings is None:
+                    timings = getattr(d, "timings", {})
+                peak = torch.cuda.max_memory_allocated() / MB if cuda \
+                    else float("nan")
+                line.append(
+                    f"{('cold', 'warm')[rep] if runs == 2 else 'one run'} "
+                    f"{nbytes / secs / 1e6:.2f} MB/s"
+                    + (f" (phase A {timings.get('phase_a_ms', 0):.1f} ms, "
+                       f"phase B {timings.get('phase_b_ms', 0):.1f} ms)"
+                       if engine == "torch" and "phase_a_ms" in timings
+                       else "")
+                    + (f", peak device memory {peak:.1f} MiB"
+                       if engine != "native" and cuda else ""))
+            print(f"engine={engine} {name}: " + "; ".join(line), flush=True)
+        if cuda:
+            torch.cuda.empty_cache()
+        clock.lap(f"23 engine=torch {name}")
+
+    # entry(): the forward step of the graft entry on the device
+    fn, args = port_entry.entry(device=device)
+    lens, end = fn(*args)
+    host = port_entry.entry(device="cpu")
+    want_lens, want_end = host[0](*host[1])
+    if not (torch.equal(lens.cpu(), want_lens)
+            and torch.equal(end.cpu(), want_end)):
+        raise AssertionError("entry() on the device differs from the host")
+    print(f"entry(): per-frame lengths {lens.tolist()}, end bits "
+          f"{end.tolist()}, equal to the host's")
+    # the bitview, E8 and search ops on the device against the host
+    rng = np.random.RandomState(23)
+    data = rng.randint(0, 256, 1 << 16, dtype=np.uint8)
+    data[rng.randint(0, len(data) - 4, 64)] = 0xE8
+    for at in rng.randint(0, len(data) - 4, 16):
+        data[at:at + 4] = np.frombuffer(b"MSCF", np.uint8)
+    t = torch.from_numpy(data)
+    pos = torch.arange(8 * (len(data) - 8))
+    for peek, n in ((bitview.peek_lsb, 24), (bitview.peek_msb16, 17)):
+        if not torch.equal(peek(t.to(device), pos.to(device), n).cpu(),
+                           peek(t, pos, n)):
+            raise AssertionError(f"{peek.__name__} differs on the device")
+    frame = data[:32768].tobytes()
+    if e8.e8_decode_frame(frame, 65536, 1 << 22, device=device) != \
+            bytes(_e8_transform(bytearray(frame), 65536, 1 << 22)):
+        raise AssertionError("e8_transform differs from the scalar pass")
+    raw = data.tobytes()
+    found = [i for i in range(len(raw) - 3) if raw[i:i + 4] == b"MSCF"]
+    if search.signature_positions(raw, device=device) != found:
+        raise AssertionError("signature_positions differs from the host")
+    print(f"bitview, e8 and search ops on {device}: equal to the host "
+          f"({len(found)} signatures)")
+    clock.lap("23 entry and the small ops")
+
+
+MESH_KERNELS = (("cuda_inflate", "k1_inflate"), ("cuda_lzx", "k3_lzx"),
+                ("cuda_qtm", "k4_qtm"))
+
+
+def mesh_phase(device, clock):
+    """Phase 24: the mesh. dryrun_multichip(1) on NCCL and
+    dryrun_multichip(4) over gloo with all four ranks on the one card
+    (the JAX package's three dry-run cases, each bit-exact on every rank),
+    then decode_cab_multihost over 2 gloo ranks; the wall time of each
+    case. On the card K1, K3 and K4 must each have launched on every path,
+    their plain versions never, and nothing may decline (the Quantum folder
+    reaches K4); each rank holds every launch to the kernel's plain version
+    on the same inputs (``ops/shadow.py``). Returns the kernels' launches
+    on these paths and their largest differences from the plain
+    versions."""
+    from libmspack_tpu_torch import entry as port_entry
+
+    cuda = device.type == "cuda"
+    key = "cuda" if cuda else "plain"
+    total = {name: 0 for _, name in MESH_KERNELS}
+    errs = {}
+
+    def add(s, where):
+        for mod, name in MESH_KERNELS:
+            got = s["launches"][mod]
+            if cuda and (got["plain"] or not got["cuda"]):
+                raise AssertionError(f"{where}: {mod} launches {got}")
+            total[name] += got[key]
+            errs[name] = max(errs.get(name, 0), s["max_abs_err"].get(name, 0))
+        if cuda and set(s["max_abs_err"]) != set(total):
+            raise AssertionError(f"{where}: kernels held to their plain "
+                                 f"versions: {s['max_abs_err']}")
+
+    for n, backend in ((1, "nccl" if cuda else "gloo"), (4, "gloo")):
+        t0 = time.perf_counter()
+        s = port_entry.dryrun_multichip(n, backend=backend,
+                                        device=device.type)
+        wall = time.perf_counter() - t0
+        if cuda and s["declines"]:
+            raise AssertionError(f"mesh {n}: declines {s['declines']}")
+        add(s, f"dryrun_multichip({n})")
+        print(f"mesh dryrun_multichip({n}) on {backend}: "
+              + ", ".join(f"{c} {v:.3f} s" for c, v in s["cases"].items())
+              + f"; wall {wall:.1f} s with the ranks' start; launches "
+              + str({m: c[key] for m, c in s["launches"].items()})
+              + f"; declines {s['declines']}; largest differences from the "
+              f"plain versions {s['max_abs_err']}", flush=True)
+    t0 = time.perf_counter()
+    s = port_entry.multihost_dryrun(2, backend="gloo", device=device.type,
+                                    engine="cuda")
+    add(s, "decode_cab_multihost")
+    print(f"decode_cab_multihost over 2 gloo ranks: {s['seconds']:.3f} s, "
+          f"wall {time.perf_counter() - t0:.1f} s; launches "
+          + str({m: c[key] for m, c in s["launches"].items()})
+          + f"; largest differences from the plain versions "
+          f"{s['max_abs_err']}")
+    clock.lap("24 mesh")
+    return total, errs
 
 
 def fuzz_phase(device, budget_s, clock):

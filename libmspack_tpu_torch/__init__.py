@@ -106,10 +106,10 @@ def create_szdd_decompressor(engine: str = "cuda", device="cuda", **kw):
 def create_kwaj_decompressor(engine: str = "auto", **kw):
     """A KWAJ decompressor. KWAJ has no device route (the JAX package
     decodes it with the scalar codecs only), so ``"auto"``, ``"native"``
-    and ``"scalar"`` all take the scalar codecs and ``"cuda"`` raises
-    ``ArgsError``."""
-    from ._device import resolve_engine
+    and ``"scalar"`` all take the scalar codecs and ``"cuda"`` and
+    ``"torch"`` raise ``ArgsError``."""
+    from ._device import DEVICE_ENGINES, resolve_engine
     from .formats.kwaj import KwajDecompressor
-    if resolve_engine(engine) == "cuda":
+    if resolve_engine(engine) in DEVICE_ENGINES:
         raise ArgsError("KWAJ has no device route: use engine='auto'")
     return KwajDecompressor(**kw)

@@ -7,7 +7,9 @@ import torch
 
 from .errors import ArgsError, FallbackError
 
-ENGINES = ("cuda", "native", "scalar")
+ENGINES = ("cuda", "torch", "native", "scalar")
+# the engines that decode on a device (and take the drivers' ``device``)
+DEVICE_ENGINES = ("cuda", "torch")
 
 
 def strict_mode(strict=None) -> bool:
@@ -59,15 +61,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# the JAX package's engine names -> the port's
+_PORT_NAMES = {"jax": "torch", "tpu": "cuda"}
+
+
 def resolve_engine(engine: str) -> str:
-    """A driver's engine: ``"cuda"``, ``"native"`` or ``"scalar"``;
-    ``"auto"`` is the native host engine when it builds, else
-    ``"scalar"``. The JAX package's ``"jax"`` and ``"tpu"`` engines are
-    not ported (ROADMAP.md, Queue 1) and raise ``ArgsError``."""
+    """A driver's engine: ``"cuda"`` (the hand-written kernels),
+    ``"torch"`` (the JAX package's ``"jax"`` engine as PyTorch tensor
+    ops), ``"native"`` or ``"scalar"``; ``"auto"`` is the native host
+    engine when it builds, else ``"scalar"``. The JAX package's names
+    ``"jax"`` and ``"tpu"`` raise ``ArgsError`` naming the port's
+    ``"torch"`` and ``"cuda"``."""
     if engine == "auto":
         from . import native
         return "native" if native.available() else "scalar"
+    if engine in _PORT_NAMES:
+        raise ArgsError(f"engine {engine!r} is the JAX package's name: the "
+                        f"port calls it {_PORT_NAMES[engine]!r}")
     if engine not in ENGINES:
         raise ArgsError(f"engine {engine!r} is not in the port: use one of "
-                        f"{ENGINES} or 'auto' (ROADMAP.md, Queue 1)")
+                        f"{ENGINES} or 'auto'")
     return engine

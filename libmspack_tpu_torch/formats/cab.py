@@ -32,20 +32,32 @@ are the reference driver's. Engines:
   environment variable ``MSPACK_TPU_STRICT`` set, as in the reference)
   they raise ``FallbackError`` instead, as does an MSZIP folder the engine
   had to re-decode on the host;
+* ``"torch"``: the JAX package's ``"jax"`` engine (its XLA-level ops)
+  as PyTorch tensor ops on ``device``: an MSZIP folder (not in fix-MSZIP
+  mode) through ``ops/inflate.inflate_folder``, an LZX folder through
+  ``ops/lzx.lzx_stream_decode``, each decoded whole and cached as under
+  ``"cuda"``. Quantum and NONE folders, salvage and fix-MSZIP take the
+  scalar path, as in the JAX package. A folder the ops decline (or whose
+  blocks cannot be collected) takes the scalar path too; the decline is
+  counted by reason in ``torch_declines`` and noted in
+  ``fallback_reasons``, and raises ``FallbackError`` under strict mode. A
+  Quantum folder, which no tensor op decodes, is noted the same way;
 * ``"native"``: the multithreaded C++ engine (``native/``), as in the
   reference driver; ``"auto"`` is ``"native"`` when it builds, else
   ``"scalar"``;
 * ``"scalar"``: the Python codecs only.
 
-The JAX package's ``"jax"`` and ``"tpu"`` engines are not ported.
+The JAX package's ``"jax"`` and ``"tpu"`` engines are the port's
+``"torch"`` and ``"cuda"``.
 """
 from __future__ import annotations
 
+import collections
 import os
 from typing import Callable, List, Optional
 
-from .._device import (new_declines, note_fallback, resolve_device,
-                       resolve_engine, strict_mode)
+from .._device import (DEVICE_ENGINES, new_declines, note_fallback,
+                       resolve_device, resolve_engine, strict_mode)
 from ..codecs.lzx import LzxDecompressor
 from ..codecs.mszip import MszipDecompressor
 from ..codecs.qtm import QtmDecompressor
@@ -228,8 +240,8 @@ class CabDecompressor:
         self.salvage = False
         self.message = message or (lambda s: None)
         self.engine = resolve_engine(engine)
-        self.device = resolve_device(device) if self.engine == "cuda" \
-            else None
+        self.device = resolve_device(device) \
+            if self.engine in DEVICE_ENGINES else None
         # strict: a folder that engine="cuda" declines raises FallbackError
         # instead of taking the scalar path; fallback_reasons keeps why
         # each device path declined, {path: "FallbackError: msg"}
@@ -238,6 +250,10 @@ class CabDecompressor:
         self.cuda_engine = None       # lazy CudaMszipEngine (host phase B)
         self.cuda_lzx_engine = None   # lazy CudaLzxEngine
         self.cuda_qtm_engine = None   # lazy CudaQtmEngine
+        # engine="torch": the ops' declines over all folders, by reason,
+        # and their phase times (ms)
+        self.torch_declines: collections.Counter = collections.Counter()
+        self.torch_timings: dict[str, float] = {}
         self._scratch_out = None   # warm decode arena (native.Scratch)
         self._scratch_in = None    # warm staging arena
         self._img_cache = None     # (Cabinet, np image view)
@@ -690,6 +706,14 @@ class CabDecompressor:
             if ct in (COMPTYPE_QUANTUM, COMPTYPE_LZX) or (
                     ct == COMPTYPE_MSZIP and not self.fix_mszip):
                 out = self._folder_bytes_cuda(fol, ct)
+        elif self.engine == "torch":
+            if ct == COMPTYPE_LZX or (ct == COMPTYPE_MSZIP
+                                      and not self.fix_mszip):
+                out = self._folder_bytes_torch(fol, ct)
+            elif ct == COMPTYPE_QUANTUM:
+                self.torch_declines["Quantum has no tensor-op path"] += 1
+                note_fallback(self, "qtm_torch",
+                              "Quantum has no tensor-op path")
         elif self.engine == "native":
             if not self.fix_mszip and ct <= COMPTYPE_LZX:
                 out = self._folder_bytes_pipeline(fol)
@@ -871,6 +895,39 @@ class CabDecompressor:
             eng.declines["window-wrap flush across a file edge"] += 1
             return None
         return outs[0]
+
+    # -- engine="torch" --------------------------------------------------
+
+    def _folder_bytes_torch(self, fol: CabFolder, ct: int):
+        """One MSZIP or LZX folder through the tensor ops (the JAX
+        package's ``_folder_bytes_fast`` and ``_folder_bytes_lzx_device``);
+        None when its blocks cannot be collected or the ops decline, noted
+        in ``fallback_reasons`` (``FallbackError`` under strict)."""
+        from ..ops.inflate import inflate_folder
+        from ..ops.lzx import lzx_stream_decode
+
+        path = "mszip_torch" if ct == COMPTYPE_MSZIP else "lzx_torch"
+        collected = (self.collect_mszip_frames if ct == COMPTYPE_MSZIP
+                     else self.collect_raw_blocks)(fol)
+        if collected is None:
+            note_fallback(self, path, "CFDATA blocks could not be collected")
+            return None
+        blocks, sizes = collected
+        declined = collections.Counter()
+        if ct == COMPTYPE_MSZIP:
+            out = inflate_folder([f[2:] for f in blocks], sizes,
+                                 device=self.device, declines=declined,
+                                 timings=self.torch_timings)
+        else:
+            # CAB LZX never resets (cabd.c:1249-1250): one fresh stream
+            out = lzx_stream_decode(b"".join(blocks),
+                                    (fol.comp_type >> 8) & 0x1F, sum(sizes),
+                                    device=self.device, declines=declined,
+                                    timings=self.torch_timings)
+        if out is None:
+            self.torch_declines.update(declined)
+            note_fallback(self, path, declined)
+        return out
 
     @staticmethod
     def _wrap_flush_fails(fol: CabFolder, spans) -> bool:

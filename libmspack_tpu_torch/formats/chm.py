@@ -32,16 +32,25 @@ native path, and the scalar path if that fails too. Under strict mode
 (``strict=True``, or the environment variable ``MSPACK_TPU_STRICT`` set, as
 in the reference) a decline raises ``FallbackError`` instead. The engine's
 trace budget, not a chunk-size limit,
-bounds a launch. The JAX package's ``"jax"`` and ``"tpu"`` engines are not
-ported.
+bounds a launch.
+
+Under ``engine="torch"`` (the JAX package's ``"jax"`` engine, its XLA-level
+ops as PyTorch tensor ops) the section is cut into the same chunks and
+each decoded by ``ops/lzx.lzx_stream_decode`` on ``device``, as the JAX
+package's ``_sec1_bytes_device`` does. A section it cannot plan or decode
+takes the scalar path (as in the JAX package); the decline is counted by
+reason in ``torch_declines``, noted in ``fallback_reasons`` and raises
+``FallbackError`` under strict mode. The JAX package's ``"jax"`` and
+``"tpu"`` engines are the port's ``"torch"`` and ``"cuda"``.
 """
 from __future__ import annotations
 
+import collections
 import os
 from typing import List, Optional
 
-from .._device import (new_declines, note_fallback, resolve_device,
-                       resolve_engine, strict_mode)
+from .._device import (DEVICE_ENGINES, new_declines, note_fallback,
+                       resolve_device, resolve_engine, strict_mode)
 from ..codecs import lzx as lzx_mod
 from ..codecs.lzx import LzxDecompressor
 from ..errors import (ArgsError, DataFormatError, DecrunchError, MSPackError,
@@ -207,11 +216,14 @@ class ChmDecompressor:
                  strict=None):
         self.message = message or (lambda s: None)
         self.engine = resolve_engine(engine)
-        self.device = resolve_device(device) if self.engine == "cuda" \
-            else None
+        self.device = resolve_device(device) \
+            if self.engine in DEVICE_ENGINES else None
         self.strict = strict_mode(strict)
         self.fallback_reasons: dict[str, str] = {}
         self.cuda_engine = None    # lazy CudaLzxEngine
+        # engine="torch": the ops' declines, by reason, and phase times (ms)
+        self.torch_declines: collections.Counter = collections.Counter()
+        self.torch_timings: dict[str, float] = {}
         self._scratch_out = None   # warm decode arena (native.Scratch)
         self._d: Optional[_DecompState] = None
         self._sec1_cache: tuple | None = None  # (chm, bytes)
@@ -566,11 +578,14 @@ class ChmDecompressor:
                 sink.close()
 
     def _extract_sec1(self, d: _DecompState, file: ChmFile, sink) -> None:
-        if self.engine in ("native", "cuda"):
-            blob = self._sec1_bytes_cuda(d) if self.engine == "cuda" \
-                else None
-            if blob is None:
-                blob = self._sec1_bytes_native(d)
+        if self.engine in ("native", "cuda", "torch"):
+            if self.engine == "torch":
+                blob = self._sec1_bytes_torch(d)
+            else:
+                blob = self._sec1_bytes_cuda(d) if self.engine == "cuda" \
+                    else None
+                if blob is None:
+                    blob = self._sec1_bytes_native(d)
             if blob is not None:
                 if file.offset + file.length > len(blob):
                     raise DecrunchError("file beyond decoded section")
@@ -744,6 +759,55 @@ class ChmDecompressor:
         if outs is None:
             return None
         out = b"".join(outs)
+        self._sec1_cache = (chm, out)
+        return out
+
+    def _sec1_bytes_torch(self, d: _DecompState) -> bytes | None:
+        """The whole section through the tensor ops, one
+        ``lzx_stream_decode`` per reset-interval chunk (each a fresh
+        stream, chmd.c:1172-1183), cached; None declines (noted in
+        ``fallback_reasons``; ``FallbackError`` under strict)."""
+        if self._sec1_cache is not None and self._sec1_cache[0] is d.chm:
+            return self._sec1_cache[1]
+        declined = collections.Counter()
+        out = self._sec1_decode_torch(d, declined)
+        if out is None:
+            self.torch_declines.update(declined)
+            note_fallback(self, "chm_lzx_torch", declined)
+        return out
+
+    def _sec1_decode_torch(self, d: _DecompState, declined) -> bytes | None:
+        from ..ops.lzx import lzx_stream_decode
+
+        chm = d.chm
+        try:
+            plan = self._sec1_plan(d)
+        except MSPackError as e:
+            declined[f"section-1 plan: {type(e).__name__}"] += 1
+            return None
+        if plan is None:
+            declined["no section-1 plan"] += 1
+            return None
+        stream, window_bits, reset_interval, reset_offsets, length = plan
+        if not reset_offsets:
+            reset_offsets = [0]
+        parts = []
+        for i, off in enumerate(reset_offsets):
+            end = (reset_offsets[i + 1] if i + 1 < len(reset_offsets)
+                   else len(stream))
+            size = min(reset_interval, length - i * reset_interval)
+            if size <= 0:
+                break
+            part = lzx_stream_decode(stream[off:end], window_bits, size,
+                                     device=self.device, declines=declined,
+                                     timings=self.torch_timings)
+            if part is None:
+                return None
+            parts.append(part)
+        out = b"".join(parts)
+        if len(out) != length:
+            declined["chunks do not add up to the section"] += 1
+            return None
         self._sec1_cache = (chm, out)
         return out
 

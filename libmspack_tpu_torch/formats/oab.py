@@ -36,21 +36,29 @@ the ``engine="native"`` block decode are the reference driver's. Engines:
   strict mode (``strict=True``, or the environment variable
   ``MSPACK_TPU_STRICT`` set, as in the reference) a block that leaves the
   device raises ``FallbackError`` instead;
+* ``"torch"``: the JAX package's ``"jax"`` engine (its XLA-level ops) as
+  PyTorch tensor ops on ``device``: each LZX block, in the reference loop,
+  decoded whole by ``ops/lzx.lzx_stream_decode(..., is_delta=True,
+  ref_data=...)``, then its CRC checked on the host before it is written,
+  as the JAX package does. A block the ops decline takes the scalar path;
+  the decline is counted by reason in ``torch_declines``, noted in
+  ``fallback_reasons`` and raises ``FallbackError`` under strict mode;
 * ``"native"``: the C++ engine per block, as in the reference driver;
   ``"auto"`` is ``"native"`` when it builds, else ``"scalar"``;
 * ``"scalar"``: the Python codec only.
 
-The JAX package's ``"jax"`` and ``"tpu"`` engines are not ported. Its
-``tpu`` engine declines windows above 2^18 to the host; the port serves
-them on K3, held to the JAX ``scalar`` path's bytes.
+The JAX package's ``"jax"`` and ``"tpu"`` engines are the port's
+``"torch"`` and ``"cuda"``. Its ``tpu`` engine declines windows above 2^18
+to the host; the port serves them on K3, held to the JAX ``scalar`` path's
+bytes.
 """
 from __future__ import annotations
 
 import collections
 import time
 
-from .._device import note_fallback, resolve_device, resolve_engine, \
-    strict_mode
+from .._device import DEVICE_ENGINES, note_fallback, resolve_device, \
+    resolve_engine, strict_mode
 from ..codecs.lzx import LzxDecompressor
 from ..errors import (ArgsError, ChecksumError, DataFormatError, ReadError,
                       SignatureError)
@@ -85,14 +93,17 @@ class OabDecompressor:
         self.buf_size = 4096
         self.message = message or (lambda s: None)
         self.engine = resolve_engine(engine)
-        self.device = resolve_device(device) if self.engine == "cuda" \
-            else None
+        self.device = resolve_device(device) \
+            if self.engine in DEVICE_ENGINES else None
         self.strict = strict_mode(strict)
         self.fallback_reasons: dict[str, str] = {}
         self.cuda_engine = None   # lazy CudaLzxEngine
         # engine="cuda": decode_streams calls, blocks by outcome, CRC times
         self.stats: collections.Counter = collections.Counter()
         self.timings: dict[str, float] = {}
+        # engine="torch": the ops' declines, by reason (phase times go to
+        # timings)
+        self.torch_declines: collections.Counter = collections.Counter()
         self._scratch = None
 
     def set_param(self, param: int, value: int) -> None:
@@ -316,6 +327,13 @@ class OabDecompressor:
 
     def _decode_block(self, src, sink, csize: int, dsize: int, crc: int,
                       window_bits: int, ref_data: bytes | None) -> None:
+        if self.engine == "torch":
+            stream = src.read(csize)
+            if len(stream) == csize and self._decode_block_torch(
+                    sink, stream, dsize, crc, window_bits, ref_data):
+                return
+            # the ops declined: re-feed the bytes to the scalar path
+            src = open_source(stream)
         if self.engine == "native":
             # whole-block decode on the native engine; fall through to
             # the scalar path on any shortfall
@@ -362,6 +380,42 @@ class OabDecompressor:
 
         if crc_state["crc"] != crc:
             raise ChecksumError("OAB block CRC mismatch")
+
+    def _decode_block_torch(self, sink, stream, dsize: int, crc: int,
+                            window_bits: int, ref_data) -> bool:
+        """One whole LZX DELTA block through ``lzx_stream_decode``, its CRC
+        checked before the bytes are written (a mismatch raises
+        ``ChecksumError``, as the JAX package's ``"jax"`` engine does);
+        False when the ops decline (noted, ``FallbackError`` under
+        strict)."""
+        from ..ops.lzx import lzx_stream_decode
+
+        declined = collections.Counter()
+        try:
+            out = lzx_stream_decode(stream, window_bits, dsize,
+                                    is_delta=True, ref_data=ref_data,
+                                    device=self.device, declines=declined,
+                                    timings=self.timings)
+        except (IndexError, OverflowError) as e:
+            # the host header walk on a malformed block (a stored block
+            # past the data, a stored R above 2^31 - 1); the JAX engine
+            # catches these too
+            declined[type(e).__name__] += 1
+            out = None
+        if out is None:
+            self.torch_declines.update(declined)
+            self.stats["scalar blocks"] += 1
+            note_fallback(self, "oab_lzx_torch", declined)
+            return False
+        t0 = time.perf_counter()
+        ok = crc32_raw(out) == crc
+        self.timings["crc_ms"] = self.timings.get("crc_ms", 0.0) + \
+            (time.perf_counter() - t0) * 1e3
+        if not ok:
+            raise ChecksumError("OAB block CRC mismatch")
+        sink.write(out)
+        self.stats["device blocks"] += 1
+        return True
 
     def decompress_bytes(self, data: PathOrBytes) -> bytes:
         sink = BytesSink()

@@ -8,9 +8,10 @@ Header semantics (reference: libmspack/mspack/szddd.c:137-216):
   length; data at 12; LZSS QBASIC mode.
 
 Copied from ``libmspack_tpu/formats/szdd.py``; the engines differ:
-``"cuda"`` (the default) decodes the LZSS stream with the port's device
-tensor ops on ``device`` (``ops/lzss.py``, the port of the JAX package's
-``engine="jax"``, ``ops/lzss_jax.py``); ``"native"`` is the C++ engine
+``"cuda"`` (the default) and ``"torch"`` decode the LZSS stream with the
+port's device tensor ops on ``device`` (``ops/lzss.py``, the port of the
+JAX package's ``engine="jax"``, ``ops/lzss_jax.py``: SZDD has no
+hand-written kernel, so both names take that one path); ``"native"`` is the C++ engine
 (``native.lzss_decompress``), ``"auto"`` is ``"native"`` when it builds,
 and ``"scalar"`` the Python codec. All are bit-exact.
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .._device import resolve_device, resolve_engine
+from .._device import DEVICE_ENGINES, resolve_device, resolve_engine
 from ..codecs import lzss
 from ..errors import DataFormatError, SignatureError
 from ..system import (BytesSink, FileSink, PathOrBytes, Sink, open_source,
@@ -44,8 +45,8 @@ class SzddDecompressor:
 
     def __init__(self, engine: str = "cuda", device="cuda"):
         self.engine = resolve_engine(engine)
-        self.device = resolve_device(device) if self.engine == "cuda" \
-            else None
+        self.device = resolve_device(device) \
+            if self.engine in DEVICE_ENGINES else None
 
     def open(self, path: PathOrBytes) -> "SzddFile":
         src = open_source(path)
@@ -97,7 +98,7 @@ class SzddFile:
         data = self.source.read(-1)
         mode = lzss.MODE_EXPAND if self.header.format == FMT_NORMAL \
             else lzss.MODE_QBASIC
-        if self.engine == "cuda":
+        if self.engine in DEVICE_ENGINES:
             from ..ops import lzss as lzss_ops
             out = lzss_ops.decompress(data, mode, self.device)
         elif self.engine == "native":

@@ -20,7 +20,9 @@ has overrun that size and is bad either way.
 
 A CUDA tensor runs the hand-written kernel (``csrc/inflate.cu``); a CPU
 tensor runs ``inflate_phase_a_plain``, a straightforward Python decoder
-of the same format. ``LAUNCHES`` counts both.
+of the same format. ``LAUNCHES`` counts both. Inside
+``shadow.active()`` a launch on a card also runs the plain version on CPU
+copies of its inputs and keeps the difference (``ops/shadow.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from .. import kernels
 from .._device import resolve_device
+from . import shadow
 
 TOK_NOP = -1
 TOK_LIT = 0x20000000
@@ -137,6 +140,7 @@ def inflate_phase_a(streams, lens, hists, *, tcap=FRAME_MAX, device=None,
         return inflate_phase_a_plain(streams, lens, hists, tcap=tcap)
     if streams.device.type != "cuda":
         raise ValueError(f"unsupported device {streams.device}")
+    host = shadow.inputs(streams, lens, hists)
     L = streams.shape[0]
     dev = streams.device
     tok = torch.empty((L, tcap), dtype=torch.int32, device=dev)
@@ -150,6 +154,9 @@ def inflate_phase_a(streams, lens, hists, *, tcap=FRAME_MAX, device=None,
             cnt.data_ptr(), warps, torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "K1 inflate")
     LAUNCHES["cuda"] += 1
+    if host is not None:
+        shadow.record("k1_inflate", (tok, litw, cnt),
+                      inflate_phase_a_plain(*host, tcap=tcap), rows=4)
     return tok, litw, cnt
 
 

@@ -30,7 +30,9 @@ one output byte, so ``tcap`` = the bytes a call decodes is always enough.
 A CUDA tensor runs the hand-written kernel (``csrc/lzx.cu``, one warp per
 stream, rows copied to 4-byte alignment first where they are not); a CPU
 tensor runs ``lzx_phase_a_plain``, a straightforward Python decoder of the same
-format, counts and state record. ``LAUNCHES`` counts both.
+format, counts and state record. ``LAUNCHES`` counts both. Inside
+``shadow.active()`` a launch on a card also runs the plain version on CPU
+copies of its inputs and keeps the difference (``ops/shadow.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 
 from .. import kernels
 from .._device import resolve_device
+from . import shadow
 from .cuda_inflate import pack_streams
 
 TOK_NOP = -1
@@ -155,6 +158,7 @@ def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
         return out if want_state else out[:3]
     if streams.device.type != "cuda":
         raise ValueError(f"unsupported device {streams.device}")
+    host = shadow.inputs(streams, lens, out_lens, hists, state)
     L = streams.shape[0]
     dev = streams.device
     streams = word_aligned(streams)
@@ -176,6 +180,10 @@ def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "K3 lzx")
     LAUNCHES["cuda"] += 1
+    if host is not None:
+        shadow.record("k3_lzx", (tok, litw, cnt, state), lzx_phase_a_plain(
+            *host[:4], window_bits, is_delta=is_delta, tcap=tcap,
+            state=host[4]))
     return (tok, litw, cnt, state) if want_state else (tok, litw, cnt)
 
 

@@ -29,7 +29,9 @@ one output byte, so ``tcap`` = the bytes a call decodes is always enough.
 A CUDA tensor runs the hand-written kernel (``csrc/qtm.cu``, one warp per
 stream, rows copied to 4-byte alignment first where they are not); a CPU
 tensor runs ``qtm_phase_a_plain``, a straightforward Python decoder of the same
-format, counts and state record. ``LAUNCHES`` counts both.
+format, counts and state record. ``LAUNCHES`` counts both. Inside
+``shadow.active()`` a launch on a card also runs the plain version on CPU
+copies of its inputs and keeps the difference (``ops/shadow.py``).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 
 from .. import kernels
 from .._device import resolve_device
+from . import shadow
 from .cuda_inflate import pack_streams
 from .cuda_lzx import (TOK_LIT, TOK_MATCH, TOK_NOP, from_jax_batch,
                        word_aligned)
@@ -119,6 +122,7 @@ def qtm_phase_a(streams, lens, out_lens, window_bits, *, tcap, state=None,
         return out if want_state else out[:3]
     if streams.device.type != "cuda":
         raise ValueError(f"unsupported device {streams.device}")
+    host = shadow.inputs(streams, lens, out_lens, state)
     L = streams.shape[0]
     dev = streams.device
     streams = word_aligned(streams)
@@ -139,6 +143,9 @@ def qtm_phase_a(streams, lens, out_lens, window_bits, *, tcap, state=None,
             cnt.data_ptr(), torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "K4 qtm")
     LAUNCHES["cuda"] += 1
+    if host is not None:
+        shadow.record("k4_qtm", (tok, litw, cnt, state), qtm_phase_a_plain(
+            *host[:3], window_bits, tcap=tcap, state=host[3]))
     return (tok, litw, cnt, state) if want_state else (tok, litw, cnt)
 
 

@@ -13,15 +13,15 @@ bytes resolve at once:
 Iterating ``ptr <- ptr[ptr]`` converges every chain to its root literal in
 ceil(log2(longest chain)) rounds, each one gather. Overlapping matches
 (dist < len) work because resolution is per byte. Output = ``lit[root]``,
-with negative roots mapped into ``history`` or to ``fill``. The JAX
-module's ``tokens_to_ptr`` serves only ``ops/lzx_jax.py``, which is not
-ported (ROADMAP Queue 1 item 5).
+with negative roots mapped into ``history`` or to ``fill``.
+``tokens_to_ptr`` expands a token stream into those pointers
+(``ops/lzx.py``).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["resolve", "tokens_to_ptr", "point_roots", "scatter_max_marks"]
 
 
 def resolve(ptr, lit, history=None, fill: int = 0x20,
@@ -47,3 +47,38 @@ def resolve(ptr, lit, history=None, fill: int = 0x20,
         return torch.where(p < 0, hist_val, out)
     return torch.where(p < 0, torch.full_like(out, fill), out)
 
+
+
+def point_roots(ptr, N: int):
+    """Pointer-double ``ptr`` (int64, length N) to its fixed points:
+    ``ptr <- ptr[ptr]`` where ``ptr >= 0``, ceil(log2 N) rounds."""
+    for _ in range(max(1, N - 1).bit_length()):
+        ptr = torch.where(ptr >= 0, ptr[ptr.clamp(0, N - 1)], ptr)
+    return ptr
+
+
+def scatter_max_marks(n: int, idx, values):
+    """``zeros(n).at[idx].max(values)``: the largest value landing on each
+    of ``n`` slots (0 where none does)."""
+    marks = torch.zeros(n, dtype=torch.int64, device=idx.device)
+    return marks.scatter_reduce(0, idx, values, reduce="amax",
+                                include_self=True)
+
+
+def tokens_to_ptr(out_len: int, tok_out_start, tok_kind, tok_lit, tok_dist):
+    """Expand a token stream into per-byte ``(ptr, lit)``.
+
+    tok_out_start: ``(T,)`` output offset of each token (prefix sum of
+    lengths); tok_kind: ``(T,)``, 0 literal, 1 match; tok_lit: literal
+    bytes; tok_dist: match distances. Each output byte finds its covering
+    token with a scatter-max: mark token starts, then a running maximum
+    gives the token id of every byte."""
+    dev = tok_out_start.device
+    t = tok_out_start.shape[0]
+    marks = scatter_max_marks(out_len + 1, tok_out_start.clamp(0, out_len),
+                              torch.arange(t, device=dev) + 1)
+    tok_id = (torch.cummax(marks[:out_len], 0).values - 1).clamp(0, t - 1)
+    pos = torch.arange(out_len, device=dev)
+    ptr = torch.where(tok_kind[tok_id] == 0, pos,
+                      pos - tok_dist[tok_id].to(torch.int64))
+    return ptr, tok_lit[tok_id]

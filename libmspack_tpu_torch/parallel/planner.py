@@ -49,6 +49,7 @@ from typing import List, Optional
 
 from .._device import (new_declines, note_fallback, reason_text,
                        resolve_device, resolve_engine, strict_mode)
+from ..errors import ArgsError
 from ..formats.cab import COMPTYPE_MASK, CabDecompressor, Cabinet
 from ..system import BytesSink, PathOrBytes
 
@@ -199,9 +200,15 @@ def _native_archive_pipelines(plan: Plan, results: dict, n_threads,
 
 
 def _routes(plan: Plan, engine: str) -> dict:
-    """codec -> "cuda", "native" or "scalar"."""
+    """codec -> "cuda", "native" or "scalar". ``"torch"`` has no batched
+    route here (the drivers take it one archive at a time) and raises
+    ``ArgsError`` rather than run on the host."""
     if engine != "auto":
-        return dict.fromkeys(CODECS, resolve_engine(engine))
+        route = resolve_engine(engine)
+        if route == "torch":
+            raise ArgsError("the planner has no engine='torch' route: use "
+                            "the drivers' engine='torch'")
+        return dict.fromkeys(CODECS, route)
     from ..utils import choose_engine
     return {c: choose_engine(sum(j.out_len for j in plan.jobs
                                  if j.comp_name == c), c) for c in CODECS}

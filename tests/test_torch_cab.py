@@ -272,7 +272,7 @@ def test_entry_points_default_to_the_card():
         assert create(engine="auto").engine == "native"
         assert create(engine="scalar").device is None
         for engine in ("jax", "tpu"):
-            with pytest.raises(lt.ArgsError, match="ROADMAP"):
+            with pytest.raises(lt.ArgsError, match="the port calls it"):
                 create(engine=engine)
 
 
@@ -381,6 +381,24 @@ def test_port_imports_no_jax():
         "arcs = fuzz_mass.build_archives()\n"
         "r = fuzz_mass.sweep('cab', arcs['cab'], 2, 0, device='cpu')\n"
         "assert not (r['fails'] or r['mismatches']), r\n"
+        "t = lt.create_cab_decompressor(engine='torch', device='cpu')\n"
+        "for comp in ('mszip', 'lzx'):\n"
+        "    blob = cab_c.write_cab(files=[('j.txt', data)], "
+        "compression=comp)\n"
+        "    assert one(t, blob) == data, comp\n"
+        "assert not t.torch_declines\n"
+        "c = lt.create_chm_decompressor(engine='torch', device='cpu')\n"
+        "assert one(c, chm) == data and not c.torch_declines\n"
+        "o = lt.create_oab_decompressor(engine='torch', device='cpu')\n"
+        "assert o.decompress_bytes(oab) == data\n"
+        "assert o.stats['device blocks'] == 1\n"
+        "from libmspack_tpu_torch import entry\n"
+        "fn, args = entry.entry(device='cpu')\n"
+        "lens, end = fn(*args)\n"
+        "assert lens.tolist() == [16384] * 4, lens\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    s = entry.dryrun_multichip(1, backend='gloo', device='cpu')\n"
+        "assert s['launches']['cuda_lzx']['plain'] > 0, s\n"
         "bad = [m for m in sys.modules if m in ('jax', 'bench', 'devtime')\n"
         "       or m.split('.')[0] in ('libmspack_tpu', 'tools')]\n"
         "assert not bad, bad\n"

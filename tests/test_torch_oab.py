@@ -294,5 +294,5 @@ def test_entry_point_defaults():
     d = lt.create_oab_decompressor(device="cpu")
     assert d.engine == "cuda" and not d.strict
     assert lt.create_oab_decompressor(engine="auto").engine == "native"
-    with pytest.raises(lt.ArgsError, match="ROADMAP"):
+    with pytest.raises(lt.ArgsError, match="the port calls it"):
         lt.create_oab_decompressor(engine="tpu")

@@ -235,5 +235,5 @@ def test_szdd_entry_point_defaults():
     d = lt.create_szdd_decompressor(device="cpu")
     assert d.engine == "cuda"
     assert lt.create_szdd_decompressor(engine="auto").engine == "native"
-    with pytest.raises(lt.ArgsError, match="ROADMAP"):
+    with pytest.raises(lt.ArgsError, match="the port calls it"):
         lt.create_szdd_decompressor(engine="jax")
