@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time-k34   # K3 and K4 alone (time_k34)
     python3 chip_smoke.py --time-oab   # the OAB files alone (time_oab)
     python3 chip_smoke.py --diag-k1    # where K1's time goes (diag_k1)
+    python3 chip_smoke.py --measure    # phase 25 alone (measure_only)
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
 1. require a CUDA device; print the card's name and power limit;
@@ -105,6 +106,22 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     version on CPU copies of the same inputs (``ops/shadow.py``: counts,
     state records, live tokens), and the largest difference joins the
     kernel's max_abs_err;
+25. the JAX package's measurement path through the port
+    (``measure_phase``): ``python -m libmspack_tpu_torch.bench``'s rows on
+    the cabinets of phases 5, 9 and 14 (native rows,
+    ``mszip_decompress_cuda`` strict, the K1, K3 and K4 rows from their
+    bench entries at the JAX shapes: K1 on 1024 frames of 32 KiB, K3 on
+    1024 chunks of 64 KiB at window 2^16, K4 on 1024 streams of 24 KiB at
+    2^15; ``mesh_1dev`` on one NCCL rank), printed as the bench's JSON
+    line, then K2's entry on 256 frames: every lane without error, the
+    sampled lanes (0, n/2, n-1) bit-exact and equal to the plain version
+    run on their own inputs, each entry's launch configuration (blocks
+    per SM from the runtime) and peak memory printed; ``mesh_scaling`` at
+    1, 2 and 4 ranks (each rank's first decode shadow-checked),
+    ``scaling_model`` from this run's rates and P5's gather rate,
+    ``cut_bisect`` on one marker (nvcc, compile only), and
+    ``devtime.time_chained`` on a chain of K1 launches beside the entry's
+    time;
 22. last (a kernel fault would poison the CUDA context): the port's
     fuzz_mass with engine="cuda" on CAB (MSZIP, LZX and Quantum folders),
     CHM, OAB and SZDD, seeded, 15 s each: no foreign exception, no CUDA
@@ -115,9 +132,9 @@ Each kernel's launch count is set to 0 just before its main path runs and
 read just after (for a probe, its tool's main(), where a kernel replayed
 from a CUDA graph counts once per replay; K3's is its CAB LZX path's plus
 the OAB path's, each file's counted alone; K1-K4 add the launches of
-phases 18-19, each run counted alone, and K1, K3 and K4 those of phase
-24's paths, counted in each spawned rank and summed). The next-to-last
-line is
+phases 18-19, each run counted alone, K1, K3 and K4 those of phase
+24's paths, counted in each spawned rank and summed, and K1-K4 those of
+phase 25, the parent's and its ranks'). The next-to-last line is
 a JSON object with each kernel's launches on the main path, its largest
 difference from the plain version, its time, the plain version's, and its
 bound: the larger of the bytes it must move over the card's memory rate
@@ -150,20 +167,16 @@ FOLDER_MB = {"mszip": 24, "lzx": 24, "quantum": 6}
 
 
 def build_corpus(total_bytes: int) -> bytes:
-    """bench.py:40-50, the same bytes (``utils.build_corpus``)."""
-    from libmspack_tpu_torch import utils
-    return utils.build_corpus(total_bytes)
+    """bench.py:40-50, the same bytes (``libmspack_tpu_torch.bench``)."""
+    from libmspack_tpu_torch import bench
+    return bench.build_corpus(total_bytes)
 
 
 def build_cab(corpus: bytes, compression: str) -> bytes:
-    """bench.py:53-60 with the port's cabinet writer, the same bytes."""
-    from libmspack_tpu_torch.compress import cab_c
-    folders = []
-    fsz = FOLDER_MB[compression] << 20
-    for i in range(0, len(corpus), fsz):
-        folders.append(cab_c.FolderSpec(
-            [(f"f{i}.bin", corpus[i : i + fsz])], compression))
-    return cab_c.write_cab(folders=folders)
+    """bench.py:53-60 with the port's cabinet writer, the same bytes
+    (``libmspack_tpu_torch.bench``)."""
+    from libmspack_tpu_torch import bench
+    return bench.build_cab(corpus, compression)
 
 
 def _encode_blocks(jobs, threads=8):
@@ -484,15 +497,17 @@ class Clock:
 def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
         chm_mb=16, qtm_mb=24, reps=4, oab_mb=64, oab_big_mb=32,
         oab_big_block=4 << 20, szdd_bytes=1 << 20, corpus_cabs=64,
-        calib_mb=(4, 24), fuzz_s=15, torch_kb=None):
+        calib_mb=(4, 24), fuzz_s=15, torch_kb=None, small_bench=False):
     """All phases after the device check; returns the kernels' JSON.
 
     ``run("cpu", total_mb=6, edge_frame=4096, lzx_big=1 << 17, chm_mb=2,
     qtm_mb=1, reps=2, oab_mb=1, oab_big_mb=1, oab_big_block=1 << 19,
     szdd_bytes=1 << 16, corpus_cabs=2, calib_mb=(0.25,), fuzz_s=2,
-    torch_kb=128)`` rehearses every phase on the CPU, with the kernels'
-    plain versions, before a run on the card. ``torch_kb`` gives phase 23
-    copies of the bench's archives cut to that many KiB (``torch_small``)."""
+    torch_kb=128, small_bench=True)`` rehearses every phase on the CPU,
+    with the kernels' plain versions, before a run on the card.
+    ``torch_kb`` gives phase 23 copies of the bench's archives cut to that
+    many KiB (``torch_small``); ``small_bench`` runs phase 25's bench
+    entries at ``SMALL_SHAPES`` and its mesh at 1 and 2 ranks."""
     import tempfile
     import threading
 
@@ -516,7 +531,8 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     k3 = lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench)
     entries.append(k3)
     entries.append(qtm_phases(device, qtm_mb, lzx_big, reps, clock, bench))
-    entries.extend(probe_phases(device, clock))
+    probes = {}
+    entries.extend(probe_phases(device, clock, probes))
     # K3's entry gains the OAB path's launches and comparisons
     oab_launches, e3 = oab_phases(device, oab_mb, oab_big_mb, oab_big_block,
                                   min(reps, 3), clock, bench)
@@ -546,6 +562,15 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     for e in entries:
         e["launches"] += mesh.get(e["name"], 0)
         e["max_abs_err"] = max(e["max_abs_err"], mesh_err.get(e["name"], 0))
+    meas, meas_err = measure_phase(
+        device, clock, bench, probes["micro_gather"],
+        SMALL_SHAPES if small_bench else BENCH_SHAPES,
+        (1, 2) if small_bench else (1, 2, 4))
+    print(f"launches on the measurement path: {meas}; largest differences "
+          f"from the plain versions there: {meas_err}")
+    for e in entries:
+        e["launches"] += meas.get(e["name"], 0)
+        e["max_abs_err"] = max(e["max_abs_err"], meas_err.get(e["name"], 0))
     fuzz_phase(device, fuzz_s, clock)
     bad = [e["name"] for e in entries if e["max_abs_err"]]
     if bad:
@@ -1919,6 +1944,145 @@ def mesh_phase(device, clock):
     return total, errs
 
 
+# phase 25: the kernels' bench entries at the JAX package's shapes (each
+# entry's defaults), and small ones for a rehearsal on the CPU
+BENCH_SHAPES = {"cuda_inflate": {}, "cuda_resolve": {}, "cuda_lzx": {},
+                "cuda_qtm": {}}
+SMALL_SHAPES = {"cuda_inflate": dict(n=8, kb=8),
+                "cuda_resolve": dict(n_frames=8),
+                "cuda_lzx": dict(n_lanes=4, chunk_kb=16),
+                "cuda_qtm": dict(n_lanes=4, chunk_kb=8)}
+# the link the scaling model is given where there is one card: what
+# tools/scaling_model.measure_link measured between two NVIDIA H100 80GB
+# HBM3 (700 W) of a four-card host, NCCL send/recv, 200 round trips each
+# of 4 bytes (the one-way latency) and of 4 * H_WIN bytes (the rate)
+LINK_GBPS = 9.990834062244028
+LINK_US = 80.65297000001693
+CUT_MARKER = "int64_t used = b.tell();"
+MODULE_KERNELS = {"cuda_inflate": "k1_inflate", "cuda_resolve": "k2_resolve",
+                  "cuda_lzx": "k3_lzx", "cuda_qtm": "k4_qtm"}
+
+
+def measure_phase(device, clock, bench, gather_records, shapes, mesh_sizes):
+    """Phase 25: the JAX package's measurement path through the port.
+    bench.py's rows on the cabinets of phases 5, 9 and 14
+    (``libmspack_tpu_torch.bench``: native rows, ``mszip_decompress_cuda``
+    strict, the K1, K3 and K4 rows from their bench entries, the mesh at
+    one rank), K2's bench entry, ``mesh_scaling`` at ``mesh_sizes``,
+    ``scaling_model`` from this run's rates and P5's gather rate
+    (``gather_records``), ``cut_bisect`` on one marker, and
+    ``devtime.time_chained`` on a chain of K1 launches. Each entry must be
+    bit-exact with no error and its sampled lanes equal to the plain
+    version; the mesh runs hold every launch of their first decode to the
+    plain version (``ops/shadow.py``). Returns the launches of the phase
+    by kernel name (the parent's counted by ``Launches``, the ranks' summed)
+    and the largest differences from the plain versions."""
+    import torch
+
+    from libmspack_tpu_torch import bench as port_bench
+    from libmspack_tpu_torch.ops import cuda_inflate as ci
+    from libmspack_tpu_torch.ops import cuda_resolve as cr
+    from libmspack_tpu_torch.tools import (cut_bisect, devtime, mesh_scaling,
+                                           scaling_model)
+
+    cuda = device.type == "cuda"
+    counts = Launches(device)
+    errs = {}
+    key = counts.key
+    ranks_total = dict.fromkeys(MODULE_KERNELS.values(), 0)
+
+    def add_ranks(launches, max_abs_err):
+        for mod, c in launches.items():
+            ranks_total[MODULE_KERNELS[mod]] += c[key]
+            if cuda and c["plain"]:
+                raise AssertionError(f"{mod}: plain launches {c} on a card")
+        for k, v in max_abs_err.items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    def check(e):
+        print(json.dumps(e), flush=True)
+        bad = e["errors"] or not e["sampled_bit_exact"] or \
+            e.get("out_ok", e.get("cnt_ok")) != e["lanes"] or \
+            e["plain_max_abs_err"] or e.get("k1_plain_max_abs_err", 0)
+        if bad:
+            raise AssertionError(f"{e['kernel']} bench entry failed: {e}")
+        name = e["kernel"]
+        errs[name] = max(errs.get(name, 0), e["plain_max_abs_err"])
+        if "k1_plain_max_abs_err" in e:
+            errs["k1_inflate"] = max(errs.get("k1_inflate", 0),
+                                     e["k1_plain_max_abs_err"])
+        if name == "k2_resolve":   # tokens read, bytes written; a lane a chain
+            nbytes, chain = 8 * e["tokens"] + e["bytes_out"], \
+                e["max_steps"] + 1
+        else:     # streams read, tokens and counts written
+            nbytes = e["bytes_in"] + 8 * e["tokens"] + 32 * e["lanes"]
+            chain = e["max_steps"]
+        print(f"{name}: {e['config']}: {e['ms']:.3f} ms "
+              f"({e['mb_per_s']:.1f} MB/s, {e['timing']}); bound "
+              f"{bound(nbytes, chain)}; launch {e['launch']}; peak "
+              f"{e['peak_bytes']} bytes", flush=True)
+
+    cabs = {c: (bench[c]["corpus"], bench[c]["blob"])
+            for c in ("mszip", "lzx", "quantum")}
+    (doc, details), _ = counts.run(lambda: port_bench.run(
+        cabs=cabs, require_cuda=cuda, device=device,
+        shapes={m: shapes[m] for m in ("cuda_inflate", "cuda_lzx",
+                                       "cuda_qtm")}))
+    print(json.dumps(doc), flush=True)
+    entries = details["entries"]
+    for e in entries:
+        check(e)
+    add_ranks(details["mesh"]["launches"], details["mesh"]["max_abs_err"])
+    clock.lap("25 bench rows")
+    k2, _ = counts.run(lambda: cr.bench_entry(**shapes["cuda_resolve"],
+                                              device=device))
+    check(k2)
+    entries.append(k2)
+    clock.lap("25 K2 bench entry")
+    scale, _ = counts.run(lambda: mesh_scaling.run(mesh_sizes, device))
+    add_ranks(scale.pop("launches"), scale.pop("max_abs_err"))
+    print(json.dumps(scale), flush=True)
+    clock.lap("25 mesh_scaling")
+    rates = scaling_model.rates_from({"entries": entries})
+    if cuda and torch.cuda.device_count() >= 2:
+        link = scaling_model.measure_link()
+    else:
+        link = scaling_model.given_link(LINK_GBPS, LINK_US)
+    proj = scaling_model.project(
+        rates, scaling_model.gather_rate(gather_records), link)
+    print(json.dumps(proj), flush=True)
+    ok, line = cut_bisect.cut(CUT_MARKER)
+    print(line, flush=True)
+    if not ok:
+        raise AssertionError(f"cut_bisect: {line}")
+    clock.lap("25 scaling_model, cut_bisect")
+    k1 = entries[0]
+    frames, _ = ci.bench_inputs(**shapes["cuda_inflate"])
+    s, lens = ci.pack_streams(frames)
+    sd, ld = s.to(device), lens.to(device)
+    tcap = k1["tcap"]
+
+    def step(h):
+        _, _, cnt = ci.inflate_phase_a(sd, ld, h, tcap=tcap)
+        return h + cnt[0]   # the next launch waits on these counts
+
+    h0 = torch.zeros(len(frames), dtype=torch.int32, device=device)
+    (per_step, last), _ = counts.run(lambda: (devtime.time_chained(
+        step, h0, n=16, min_delta=0.5 if cuda else 0.05), step(h0)))
+    if int(last.abs().max()):
+        raise AssertionError("K1 chain: a launch flagged an error")
+    print(f"devtime.time_chained, K1 on {k1['config']}: {per_step * 1e3:.3f} "
+          f"ms a launch; bench_entry {k1['ms']:.3f} ms", flush=True)
+    clock.lap("25 devtime")
+    total = {n: counts.total[n] + ranks_total[n]
+             for n in MODULE_KERNELS.values()}
+    if cuda:
+        missing = [n for n, v in total.items() if not v]
+        if missing:
+            raise AssertionError(f"phase 25 never launched {missing}")
+    return total, errs
+
+
 def fuzz_phase(device, budget_s, clock):
     """Phase 22, last: the port's fuzz_mass on ``device`` for CAB (MSZIP,
     LZX and Quantum folders), CHM, OAB and SZDD, seeded, ``budget_s``
@@ -1950,13 +2114,14 @@ PROBE_TOOLS = ("micro_vec", "micro_skel", "micro_copy", "mosaic_probe",
                "micro_gather", "micro_gather2")
 
 
-def probe_phases(device, clock):
+def probe_phases(device, clock, records=None):
     """Phase 15: each probe tool's main() with its kernels' launch counts
     set to 0 before and read after, then each run's result against the
     plain version on the same inputs. On the CPU (a rehearsal) the tools
     run their plain versions with small library rows. Returns one entry
     per probe kernel: the time, bound and library time of its largest
-    run, the largest difference over all its runs."""
+    run, the largest difference over all its runs; ``records`` (a dict)
+    receives each tool's records by name."""
     import importlib
 
     import torch
@@ -1966,10 +2131,12 @@ def probe_phases(device, clock):
         mod = importlib.import_module(f"libmspack_tpu_torch.tools.{name}")
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
-        records = mod.main([], device=device)
+        recs = mod.main([], device=device)
+        if records is not None:
+            records[name] = recs
         launches = dict(mod.LAUNCHES)
         runs = {k: [] for k in mod.REPLACES}
-        for r in records:
+        for r in recs:
             want, plain_ms = timed(r.plain, torch.device("cpu"))
             if want.shape != r.out.shape:
                 raise AssertionError(f"{r.kernel} {r.label}: shape "
@@ -2188,15 +2355,43 @@ def time_oab(reps=5, device="cuda", sizes=(64, 32, 4 << 20)):
                           {**d.cuda_engine.timings, **d.timings}.items())))
 
 
+def measure_only():
+    """``python3 chip_smoke.py --measure``: phase 25 alone, after the build,
+    on bench.py's cabinets (``bench.cached_cab``) and P5's gather rows
+    (``micro_gather.bench_gather``)."""
+    import torch
+
+    from libmspack_tpu_torch import bench as port_bench
+    from libmspack_tpu_torch.tools import micro_gather
+
+    device = torch.device("cuda")
+    clock = Clock()
+    build_report(time.perf_counter(), ())
+    bench = {}
+    for c, mb in CORPUS_MB.items():
+        corpus, blob = port_bench.cached_cab(c, mb)
+        bench[c] = dict(corpus=corpus, blob=blob)
+    clock.lap("cabinets")
+    recs = micro_gather.bench_gather(device)
+    meas, errs = measure_phase(device, clock, bench, recs, BENCH_SHAPES,
+                               (1, 2, 4))
+    print(f"launches on the measurement path: {meas}; largest differences "
+          f"from the plain versions there: {errs}")
+    if any(errs.values()):
+        raise AssertionError(f"kernels differ from their plain versions: "
+                             f"{errs}")
+
+
 def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
     modes = {"--time-k12": time_k12, "--time-k34": time_k34,
-             "--time-oab": time_oab, "--diag-k1": diag_k1}
+             "--time-oab": time_oab, "--diag-k1": diag_k1,
+             "--measure": measure_only}
     if argv and (len(argv) > 1 or argv[0] not in modes):
         print("usage: chip_smoke.py [--time-k12 | --time-k34 | --time-oab "
-              "| --diag-k1]", file=sys.stderr)
+              "| --diag-k1 | --measure]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",

@@ -23,6 +23,7 @@
 #include <cuda_runtime.h>
 
 #include "deflate_core.cuh"
+#include "launch_info.cuh"
 
 __global__ void k1_inflate_kernel(const uint8_t* __restrict__ streams,
                                   int64_t stride,
@@ -60,6 +61,12 @@ extern "C" int msp_k1_inflate(const void* streams, int64_t stride,
       (const int32_t*)hists, L, (int32_t*)tok, (int32_t*)litw, cap,
       (int32_t*)cnt);
   return (int)cudaGetLastError();
+}
+
+// K1's launch resources at `warps` warps a block (launch_info.cuh).
+extern "C" int msp_k1_launch_info(int warps, int* out) {
+  return launch_info(k1_inflate_kernel, 32 * warps,
+                     (size_t)warps * sizeof(dc::Tables), out);
 }
 
 extern "C" const char* msp_cuda_error_string(int e) {

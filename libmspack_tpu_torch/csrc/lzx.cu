@@ -38,6 +38,7 @@
 // streams a warp) is later work.
 #include <cuda_runtime.h>
 
+#include "launch_info.cuh"
 #include "lzx_core.cuh"
 
 static_assert(sizeof(lz::State) % 16 == 0, "records copy as uint4");
@@ -68,6 +69,12 @@ __global__ void __launch_bounds__(32)
                                    tok + i * cap, litw + i * cap, cap);
   for (int k = lane; k < W; k += 32) rec[k] = sh[k];
   if (lane == 0) lz::write_counts(cnt, L, i, r);
+}
+
+// K3's launch resources (launch_info.cuh): one warp a block, no dynamic
+// shared memory.
+extern "C" int msp_k3_launch_info(int* out) {
+  return launch_info(k3_lzx_kernel, 32, 0, out);
 }
 
 extern "C" int64_t msp_k3_state_bytes() { return sizeof(lz::State); }

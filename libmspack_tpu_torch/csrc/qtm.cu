@@ -46,6 +46,7 @@
 // later work.
 #include <cuda_runtime.h>
 
+#include "launch_info.cuh"
 #include "qtm_core.cuh"
 
 static_assert(sizeof(qt::State) % 16 == 0, "records copy as uint4");
@@ -74,6 +75,12 @@ __global__ void __launch_bounds__(32)
                                    cap);
   for (int k = lane; k < W; k += 32) rec[k] = sh[k];
   if (lane == 0) qt::write_counts(cnt, L, i, r);
+}
+
+// K4's launch resources (launch_info.cuh): one warp a block, no dynamic
+// shared memory.
+extern "C" int msp_k4_launch_info(int* out) {
+  return launch_info(k4_qtm_kernel, 32, 0, out);
 }
 
 extern "C" int64_t msp_k4_state_bytes() { return sizeof(qt::State); }

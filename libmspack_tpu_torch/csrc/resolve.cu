@@ -26,6 +26,7 @@
 // warps busy on 132 SMs and paid a global-memory round trip per token.
 #include <cuda_runtime.h>
 
+#include "launch_info.cuh"
 #include "resolve_core.cuh"
 
 namespace {
@@ -136,4 +137,14 @@ extern "C" int msp_k2_pass2(const void* work, const void* woff,
       (const uint16_t*)work, (const int64_t*)woff, (const int32_t*)outlens,
       (const int64_t*)off, (const int32_t*)chain_lane0, (uint8_t*)out);
   return (int)cudaGetLastError();
+}
+
+// K2's launch resources (launch_info.cuh): pass 1 (`pass` 1) for lanes of
+// at most `maxlen` bytes, or pass 2.
+extern "C" int msp_k2_launch_info(int pass, int maxlen, int* out) {
+  if (pass == 1) {
+    return launch_info(k2_pass1_kernel, 32,
+                       ((size_t)maxlen * 2 + 15) & ~(size_t)15, out);
+  }
+  return launch_info(k2_pass2_kernel, rs::P2_THREADS, P2_STAGE_BYTES, out);
 }

@@ -60,6 +60,11 @@ _SIGNATURES = {
     "msp_p5_symbol_step": [_P, _P, _P, _P, _I, _I, _P],
     "msp_p6_masksum": [_P, _P, _P, _I, _I, _P],
     "msp_p6_symbol_step": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # launch resources (csrc/launch_info.cuh): no stream, an int[5] out
+    "msp_k1_launch_info": [_I, _P],
+    "msp_k2_launch_info": [_I, _I, _P],
+    "msp_k3_launch_info": [_P],
+    "msp_k4_launch_info": [_P],
 }
 
 _lib = None
@@ -280,6 +285,17 @@ def host_twin_qtm():
     handle.qt_renorm.argtypes = [_P, _P, _P, _P, _I64, _P]
     handle.qt_renorm.restype = None
     return handle
+
+
+def launch_info(entry: str, *args) -> dict:
+    """A kernel's launch resources from the runtime (``csrc/
+    launch_info.cuh``): ``lib().<entry>(*args, out)``. Returns
+    ``{"blocks_per_sm", "regs", "static_smem", "dynamic_smem",
+    "local_bytes"}``; raises on a CUDA error."""
+    out = (ctypes.c_int * 5)()
+    check(getattr(lib(), entry)(*args, out), entry)
+    return dict(zip(("blocks_per_sm", "regs", "static_smem",
+                     "dynamic_smem", "local_bytes"), out))
 
 
 def check(rc: int, what: str) -> None:

@@ -6,9 +6,9 @@ source changes.
 
 Copied from ``libmspack_tpu/native/__init__.py`` so that the port imports
 nothing of the JAX package; besides the imports, the build goes to the
-port's build directory, the wrappers of the entry points the port never
-calls are left out, as in ``msp_native.cpp``, and ``lzx_resolve_traces``
-takes one history per lane, of any length, instead of whole-window rows.
+port's build directory, every wrapper of the JAX module is here, and
+``lzx_resolve_traces`` takes one history per lane, of any length,
+instead of whole-window rows.
 ``FolderBatch``/``mszip_folders`` (``libmspack_tpu/native/__init__.py:
 166-213``), ``lzx_decode`` (``:252-266``) and ``qtm_decode`` (``:510-517``)
 serve the corpus planner (``parallel/planner.py``).
@@ -62,6 +62,7 @@ def lib():
         lib_.msp_lzx_decode_ex.restype = ctypes.c_int
         lib_.msp_lzx_many.restype = ctypes.c_int
         lib_.msp_lzx_encode.restype = ctypes.c_int64
+        lib_.msp_cab_mszip_pipeline.restype = ctypes.c_int
         lib_.msp_cab_pipeline.restype = ctypes.c_int
         lib_.msp_qtm_decode.restype = ctypes.c_int
         lib_.msp_qtm_encode.restype = ctypes.c_int64
@@ -350,6 +351,30 @@ def cab_pipeline(cab, data_offsets: list[int], nblocks: list[int],
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.c_uint64(out.nbytes), foffs, stage_ptr,
         ctypes.c_uint64(stage_cap), n_threads or default_threads())
+    if r != 0:
+        return None
+    return list(foffs)
+
+
+def cab_mszip_pipeline(cab, data_offsets: list[int], nblocks: list[int],
+                       block_resv: int, out, verify: bool = True,
+                       n_threads: int | None = None) -> list[int] | None:
+    """Whole-cabinet MSZIP decode: CFDATA walk + checksum + two-phase
+    inflate in one native call, folder-parallel with no phase barrier.
+
+    cab is the full cabinet image (bytes or numpy view); out a uint8
+    numpy arena. Returns folder output offsets (n+1 entries) or None
+    when the cabinet needs the python driver's exact semantics."""
+    L = lib()
+    n = len(data_offsets)
+    offs = (ctypes.c_int64 * n)(*data_offsets)
+    nbl = (ctypes.c_int32 * n)(*nblocks)
+    foffs = (ctypes.c_int64 * (n + 1))()
+    r = L.msp_cab_mszip_pipeline(
+        _as_ptr(cab), ctypes.c_uint64(len(cab)), offs, nbl, block_resv,
+        n, 1 if verify else 0,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_uint64(out.nbytes), foffs, n_threads or default_threads())
     if r != 0:
         return None
     return list(foffs)

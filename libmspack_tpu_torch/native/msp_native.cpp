@@ -16,8 +16,8 @@
 // Exposed as a flat C ABI consumed via ctypes (no pybind11 in image).
 //
 // The port's copy of libmspack_tpu/native/msp_native.cpp, with the entry
-// points the port never calls left out (the MSZIP-only pipeline and the
-// many-stream LZX encode batch); built by g++ into
+// points that no Python wrapper calls left out (the many-stream LZX
+// encode batch, the tokenize-only MSZIP pass, msp_version); built by g++ into
 // libmspack_tpu_torch/_build/. msp_mszip_folders, the many-folder MSZIP
 // decode the corpus planner calls, is libmspack_tpu/native/
 // msp_native.cpp:2226-2278.
@@ -2926,6 +2926,20 @@ int msp_cab_pipeline(const uint8_t* cab, uint64_t cab_len,
     for (auto& th : ths) th.join();
   }
   return err.load();
+}
+
+// Back-compat MSZIP-only entry: routes through msp_cab_pipeline with a
+// zero-length stage (MSZIP never stages).
+int msp_cab_mszip_pipeline(const uint8_t* cab, uint64_t cab_len,
+                           const int64_t* data_offsets,
+                           const int32_t* nblocks, int block_resv,
+                           int n_folders, int verify, uint8_t* out,
+                           uint64_t out_cap, int64_t* folder_out_offsets,
+                           int n_threads) {
+  std::vector<uint32_t> ct(n_folders, 1);
+  return msp_cab_pipeline(cab, cab_len, data_offsets, nblocks, ct.data(),
+                          block_resv, n_folders, verify, out, out_cap,
+                          folder_out_offsets, nullptr, 0, n_threads);
 }
 
 

@@ -361,3 +361,103 @@ def inflate_phase_a_plain(streams, lens, hists, *, tcap=FRAME_MAX):
         tok[i, :n] = dec.toks
         litw[i, :n] = dec.litws
     return torch.from_numpy(tok), torch.from_numpy(litw), torch.from_numpy(cnt)
+
+
+# ---------------------------------------------------------------- bench --
+
+def bench_inputs(n=1024, kb=32):
+    """``tools/bench_kernels.py:27-35``'s inputs: ``n`` chunks of ``kb``
+    KiB of the bench corpus, each compressed alone by zlib level 6 (raw
+    deflate, no history). Returns ``(frames, raws)``."""
+    import zlib
+
+    from ._bench import chunks
+
+    raws = chunks(n, kb)
+    frames = []
+    for raw in raws:
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        frames.append(co.compress(raw) + co.flush())
+    return frames, raws
+
+
+def bench_tcap(kb):
+    """The token cap of the bench (``tools/bench_kernels.py:36``)."""
+    return ((kb * 1024 // 2 + 2048 + 127) // 128) * 128
+
+
+def launch_config(dev, L, warps=K1_WARPS):
+    """K1's launch at ``L`` streams (``_bench.launch_line``)."""
+    from . import _bench
+    if dev.type != "cuda":
+        return None
+    return _bench.launch_line(dev, -(-L // warps), 32 * warps,
+                              kernels.launch_info("msp_k1_launch_info",
+                                                  warps))
+
+
+def replay(tok, litw, sizes):
+    """Lanes' traces (int32 numpy ``(k, T)`` rows, no history) resolved
+    into bytes by the native resolver: a list of bytes, None where it
+    fails."""
+    from .. import native
+
+    tok = np.ascontiguousarray(tok, np.int32)
+    litw = np.ascontiguousarray(litw, np.int32)
+    out = []
+    for i, n in enumerate(sizes):
+        buf = np.zeros(max(n, 1), np.uint8)
+        r = native.resolve_traces(tok[i:i + 1], litw[i:i + 1], [0], [1],
+                                  [n], buf, [0, n], 1)
+        out.append(buf[:n].tobytes() if r == 0 else None)
+    return out
+
+
+def bench_entry(n=1024, kb=32, device="cuda", reps=3):
+    """The port of ``tools/bench_kernels.py:21-79``
+    (``bench_inflate_phase_a``): K1 on ``n`` frames of ``kb`` KiB at
+    once, on ``device``. Returns the JAX entry's keys (``max_steps`` is
+    the most tokens of a lane, counts row 2), ``bytes_in`` and ``tokens``
+    (the streams' bytes and all lanes' tokens), ``plain_max_abs_err`` (the
+    sampled lanes against ``inflate_phase_a_plain`` on their inputs,
+    ``shadow.difference``), ``launch`` and ``peak_bytes`` (``_bench``
+    says how each time is taken)."""
+    from . import _bench
+
+    dev = resolve_device(device)
+    frames, raws = bench_inputs(n, kb)
+    tcap = bench_tcap(kb)
+    sizes = np.array([len(r) for r in raws])
+    total = int(sizes.sum())
+    hists = torch.zeros(n, dtype=torch.int32)
+
+    def with_upload():
+        s, lens = pack_streams(frames)
+        tok, litw, cnt = inflate_phase_a(s, lens, hists, tcap=tcap,
+                                         device=dev)
+        return s, lens, tok, litw, cnt.cpu()
+
+    _bench.reset_peak(dev)
+    s, lens, tok, litw, cnt = with_upload()
+    lanes = _bench.sampled(n)
+    got = (tok[lanes].cpu(), litw[lanes].cpu(), cnt[:, lanes])
+    del tok, litw
+    exact = replay(got[0].numpy(), got[1].numpy(),
+                   sizes[lanes].tolist()) == [raws[i] for i in lanes]
+    plain = inflate_phase_a_plain(s[lanes], lens[lanes], hists[lanes],
+                                  tcap=tcap)
+    up_ms = _bench.host_ms(with_upload, reps)
+    sd, ld, hd = (t.to(dev) for t in (s, lens, hists))
+    ms = _bench.device_ms(lambda: inflate_phase_a(sd, ld, hd, tcap=tcap),
+                          dev, reps)
+    return _bench.result(
+        "k1_inflate", "pallas_inflate.phase_a",
+        f"{n} lanes x {kb} KiB frames, bench corpus, zlib level 6", dev,
+        total, ms, reps, lanes=n,
+        mb_per_s_with_upload=total / up_ms / 1e3,
+        errors=int((cnt[0] != 0).sum()),
+        out_ok=int((cnt[1].numpy() == sizes).sum()),
+        sampled_bit_exact=bool(exact), max_steps=int(cnt[2].max()),
+        bytes_in=int(lens.sum()), tokens=int(cnt[2].sum()),
+        plain_max_abs_err=shadow.difference(got, plain, rows=4),
+        tcap=tcap, launch=launch_config(dev, n), peak_bytes=_bench.peak(dev))

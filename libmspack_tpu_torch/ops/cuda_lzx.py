@@ -557,3 +557,99 @@ def lzx_phase_a_plain(streams, lens, out_lens, hists, window_bits, *,
         litw[i, :n] = lane.litws
     return (torch.from_numpy(tok), torch.from_numpy(litw),
             torch.from_numpy(cnt), state)
+
+
+# ---------------------------------------------------------------- bench --
+
+def bench_stream(data, window_bits):
+    """``pallas_lzx.py:1299-1310``: the native encoder, or the Python one
+    where the native engine does not build."""
+    from .. import native
+    if native.available():
+        r = native.lzx_encode(data, window_bits, 0)
+        if r is not None:
+            return r[0]
+    from ..compress.lzx_e import LzxEncoder
+    return LzxEncoder(window_bits).compress(data)[0]
+
+
+def bench_inputs(n_lanes=1024, chunk_kb=64, window_bits=16, cache_dir=None):
+    """``pallas_lzx.py:1323-1331``'s inputs: ``n_lanes`` chunks of
+    ``chunk_kb`` KiB of the bench corpus, each one LZX stream. Returns
+    ``(datas, streams)``; ``cache_dir`` keeps the streams
+    (``_bench.encoded``)."""
+    from . import _bench
+    datas = _bench.chunks(n_lanes, chunk_kb)
+    streams = _bench.encoded(f"lzx{window_bits}", datas,
+                             lambda d: bench_stream(d, window_bits),
+                             cache_dir)
+    return datas, streams
+
+
+def launch_config(dev, L):
+    """K3's launch at ``L`` streams (``_bench.launch_line``)."""
+    from . import _bench
+    if dev.type != "cuda":
+        return None
+    return _bench.launch_line(dev, L, 32,
+                              kernels.launch_info("msp_k3_launch_info"))
+
+
+def bench_entry(n_lanes=1024, chunk_kb=64, window_bits=16, device="cuda",
+                reps=3, cache_dir=None):
+    """The port of ``pallas_lzx.py:1313-1378``: K3 on ``n_lanes``
+    independent LZX chunks in one launch, on ``device``, with the token cap
+    ``chunk_kb * 1024 + 4096``. Returns the JAX entry's keys
+    (``max_steps`` is the most tokens of a lane, counts row 2),
+    ``bytes_in`` and ``tokens`` (the streams' bytes and all lanes'
+    tokens), ``plain_max_abs_err`` (the sampled lanes, state records
+    included,
+    against ``lzx_phase_a_plain`` on their inputs), ``launch`` and
+    ``peak_bytes`` (``_bench`` says how each time is taken)."""
+    from ..parallel.cuda_pipeline import resolve_lzx
+    from . import _bench
+
+    dev = resolve_device(device)
+    datas, streams = bench_inputs(n_lanes, chunk_kb, window_bits, cache_dir)
+    out_lens = torch.tensor([len(d) for d in datas], dtype=torch.int32)
+    hists = torch.zeros(n_lanes, dtype=torch.int32)
+    tcap = chunk_kb * 1024 + 4096
+
+    def with_upload(state=False):
+        s, lens = pack_streams(streams)
+        out = lzx_phase_a(s, lens, out_lens, hists, window_bits, tcap=tcap,
+                          return_state=state, device=dev)
+        return (s, lens) + out[:2] + (out[2].cpu(),) + out[3:]
+
+    _bench.reset_peak(dev)
+    s, lens, tok, litw, cnt, state = with_upload(state=True)
+    lanes = _bench.sampled(n_lanes)
+    got = (tok[lanes].cpu(), litw[lanes].cpu(), cnt[:, lanes],
+           state[lanes].cpu())
+    del tok, litw, state
+    replayed = [None if cnt[0, i] or cnt[1, i] != out_lens[i] else
+                resolve_lzx(got[0][k:k + 1].numpy(), got[1][k:k + 1].numpy(),
+                            [len(datas[i])], cnt[4, i:i + 1].numpy(),
+                            cnt[5, i:i + 1].numpy(), window_bits,
+                            n_threads=1)
+                for k, i in enumerate(lanes)]
+    exact = [None if r is None else r[0].tobytes() for r in replayed] == \
+        [datas[i] for i in lanes]
+    plain = lzx_phase_a_plain(s[lanes], lens[lanes], out_lens[lanes],
+                              hists[lanes], window_bits, tcap=tcap)
+    up_ms = _bench.host_ms(with_upload, reps)
+    sd, ld, od, hd = (t.to(dev) for t in (s, lens, out_lens, hists))
+    ms = _bench.device_ms(lambda: lzx_phase_a(sd, ld, od, hd, window_bits,
+                                              tcap=tcap), dev, reps)
+    total = int(out_lens.sum())
+    return _bench.result(
+        "k3_lzx", "pallas_lzx.phase_a",
+        f"{n_lanes} lanes x {chunk_kb} KiB chunks, window 2^{window_bits}, "
+        "bench corpus", dev, total, ms, reps, lanes=n_lanes,
+        mb_per_s_with_upload=total / up_ms / 1e3,
+        errors=int((cnt[0] != 0).sum()),
+        out_ok=int((cnt[1] == out_lens).sum()),
+        sampled_bit_exact=bool(exact), max_steps=int(cnt[2].max()),
+        bytes_in=int(lens.sum()), tokens=int(cnt[2].sum()),
+        plain_max_abs_err=shadow.difference(got, plain), tcap=tcap,
+        launch=launch_config(dev, n_lanes), peak_bytes=_bench.peak(dev))

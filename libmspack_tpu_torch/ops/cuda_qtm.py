@@ -375,3 +375,103 @@ def qtm_phase_a_plain(streams, lens, out_lens, window_bits, *, tcap,
         litw[i, :n] = lane.litws
     return (torch.from_numpy(tok), torch.from_numpy(litw),
             torch.from_numpy(cnt), state)
+
+
+# ---------------------------------------------------------------- bench --
+
+def bench_stream(data, window_bits):
+    """``pallas_qtm.py:901-912``: the native encoder's frames, each
+    followed by the 0xFF trailer the CAB reader injects; the Python encoder
+    where the native engine does not build."""
+    from .. import native
+    if native.available():
+        frames = native.qtm_encode(data, window_bits)
+        if frames is not None:
+            return b"".join(p + b"\xff" for p in frames)
+    from ..compress import qtm_e
+    return b"".join(p + b"\xff" for p in qtm_e.compress(data, window_bits))
+
+
+def bench_inputs(n_lanes=1024, chunk_kb=24, window_bits=15, cache_dir=None):
+    """``pallas_qtm.py:925-932``'s inputs: ``n_lanes`` chunks of
+    ``chunk_kb`` KiB of the bench corpus, each one Quantum stream. Returns
+    ``(datas, streams)``; ``cache_dir`` keeps the streams
+    (``_bench.encoded``)."""
+    from . import _bench
+    datas = _bench.chunks(n_lanes, chunk_kb)
+    streams = _bench.encoded(f"qtm{window_bits}", datas,
+                             lambda d: bench_stream(d, window_bits),
+                             cache_dir)
+    return datas, streams
+
+
+def bench_tcap(out_lens):
+    """The token cap of the bench (``pallas_qtm.py:934``)."""
+    return ((max(out_lens) * 2 + 2048 + 127) // 128) * 128
+
+
+def launch_config(dev, L):
+    """K4's launch at ``L`` streams (``_bench.launch_line``)."""
+    from . import _bench
+    if dev.type != "cuda":
+        return None
+    return _bench.launch_line(dev, L, 32,
+                              kernels.launch_info("msp_k4_launch_info"))
+
+
+def bench_entry(n_lanes=1024, chunk_kb=24, window_bits=15, device="cuda",
+                reps=2, cache_dir=None):
+    """The port of ``pallas_qtm.py:914-972``: K4 on ``n_lanes``
+    independent Quantum streams in one launch, on ``device``. Returns the
+    JAX entry's keys (``max_steps`` is the most tokens of a lane, counts
+    row 2) and, as K1's and K3's entries do, ``mb_per_s_with_upload``;
+    ``bytes_in`` and ``tokens`` (the streams' bytes and all lanes'
+    tokens), ``plain_max_abs_err`` (the sampled lanes, state records
+    included,
+    against ``qtm_phase_a_plain`` on their inputs), ``launch`` and
+    ``peak_bytes`` (``_bench`` says how each time is taken)."""
+    from ..parallel.cuda_pipeline import resolve_lzx
+    from . import _bench
+
+    dev = resolve_device(device)
+    datas, streams = bench_inputs(n_lanes, chunk_kb, window_bits, cache_dir)
+    out_lens = torch.tensor([len(d) for d in datas], dtype=torch.int32)
+    tcap = bench_tcap([len(d) for d in datas])
+
+    def with_upload(state=False):
+        s, lens = pack_streams(streams)
+        out = qtm_phase_a(s, lens, out_lens, window_bits, tcap=tcap,
+                          return_state=state, device=dev)
+        return (s, lens) + out[:2] + (out[2].cpu(),) + out[3:]
+
+    _bench.reset_peak(dev)
+    s, lens, tok, litw, cnt, state = with_upload(state=True)
+    lanes = _bench.sampled(n_lanes)
+    got = (tok[lanes].cpu(), litw[lanes].cpu(), cnt[:, lanes],
+           state[lanes].cpu())
+    del tok, litw, state
+    replayed = [None if cnt[0, i] or cnt[1, i] != out_lens[i] else
+                resolve_lzx(got[0][k:k + 1].numpy(), got[1][k:k + 1].numpy(),
+                            [len(datas[i])], [0], [0], window_bits,
+                            n_threads=1)
+                for k, i in enumerate(lanes)]
+    exact = [None if r is None else r[0].tobytes() for r in replayed] == \
+        [datas[i] for i in lanes]
+    plain = qtm_phase_a_plain(s[lanes], lens[lanes], out_lens[lanes],
+                              window_bits, tcap=tcap)
+    up_ms = _bench.host_ms(with_upload, reps)
+    sd, ld, od = (t.to(dev) for t in (s, lens, out_lens))
+    ms = _bench.device_ms(lambda: qtm_phase_a(sd, ld, od, window_bits,
+                                              tcap=tcap), dev, reps)
+    total = int(out_lens.sum())
+    return _bench.result(
+        "k4_qtm", "pallas_qtm.phase_a",
+        f"{n_lanes} lanes x {chunk_kb} KiB folders, window 2^{window_bits}, "
+        "bench corpus", dev, total, ms, reps, lanes=n_lanes,
+        mb_per_s_with_upload=total / up_ms / 1e3,
+        errors=int((cnt[0] != 0).sum()),
+        out_ok=int((cnt[1] == out_lens).sum()),
+        sampled_bit_exact=bool(exact), max_steps=int(cnt[2].max()),
+        bytes_in=int(lens.sum()), tokens=int(cnt[2].sum()),
+        plain_max_abs_err=shadow.difference(got, plain), tcap=tcap,
+        launch=launch_config(dev, n_lanes), peak_bytes=_bench.peak(dev))

@@ -17,6 +17,8 @@ passes are held to. ``LAUNCHES`` counts both, once per call.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -171,3 +173,87 @@ def resolve_frames_plain(tok, litw, ntok, out_lens, hist_flags):
             counts[lane] = -1 if bad else dst - start
     return (torch.from_numpy(np.frombuffer(out, np.uint8).copy()),
             torch.from_numpy(counts))
+
+
+# ---------------------------------------------------------------- bench --
+
+def launch_config(dev, L, nchains, maxlen):
+    """K2's two launches (``_bench.launch_line``): pass 1 at ``L`` lanes
+    of at most ``maxlen`` bytes, pass 2 at ``nchains`` chains."""
+    from . import _bench
+    if dev.type != "cuda":
+        return None
+    return {"pass1": _bench.launch_line(dev, L, 32, kernels.launch_info(
+                "msp_k2_launch_info", 1, maxlen)),
+            "pass2": _bench.launch_line(dev, nchains, 1024,
+                                        kernels.launch_info(
+                                            "msp_k2_launch_info", 2, 0))}
+
+
+def bench_entry(n_frames=256, device="cuda", reps=2):
+    """The port of ``pallas_resolve.py:262-322``: K1 on ``n_frames``
+    32 KiB frames of the bench corpus (``cuda_inflate.bench_inputs``),
+    then K2 on their traces with every hist flag 0, on ``device``. ``ms``
+    is K2 alone (both passes, between the events ``marks`` records, so the
+    lane layout's upload is outside), mean of ``reps``. Returns the JAX
+    entry's keys, ``max_steps`` and ``tokens`` (the most tokens of a lane
+    and all lanes' tokens), ``plain_max_abs_err`` (the sampled lanes' bytes and
+    counts against ``resolve_frames_plain`` on their traces),
+    ``k1_plain_max_abs_err`` (K1's sampled lanes against its plain
+    version), ``launch`` and ``peak_bytes``."""
+    from .._device import resolve_device
+    from . import _bench, shadow
+    from . import cuda_inflate as ci
+
+    dev = resolve_device(device)
+    frames, raws = ci.bench_inputs(n_frames, 32)
+    tcap = ci.bench_tcap(32)
+    sizes = [len(r) for r in raws]
+    flags = [0] * n_frames
+    s, lens = ci.pack_streams(frames)
+    hists = torch.zeros(n_frames, dtype=torch.int32)
+    _bench.reset_peak(dev)
+    tok, litw, cnt = ci.inflate_phase_a(s, lens, hists, tcap=tcap,
+                                        device=dev)
+    lanes = _bench.sampled(n_frames)
+    cnth = cnt.cpu()
+    rows = (tok[lanes].cpu(), litw[lanes].cpu(), cnth[:, lanes])
+    k1_err = shadow.difference(rows, ci.inflate_phase_a_plain(
+        s[lanes], lens[lanes], hists[lanes], tcap=tcap), rows=4)
+    ntok = cnt[2].contiguous()
+    out, counts = resolve_frames_device(tok, litw, ntok, sizes, flags)
+    outh, counts = out.cpu().numpy(), counts.cpu()
+    off, _ = _layout(sizes, flags)
+    got = [outh[off[i]:off[i + 1]].tobytes() for i in lanes]
+    exact = got == [raws[i] for i in lanes]
+    pb, pc = resolve_frames_plain(*rows[:2], rows[2][2].contiguous(),
+                                  [sizes[i] for i in lanes], [0] * len(lanes))
+    err = max(int((counts[lanes] - pc).abs().max()),
+              int(np.abs(np.frombuffer(b"".join(got), np.uint8).astype(int)
+                         - pb.numpy().astype(int)).max()))
+    times = []
+
+    def k2():
+        marks = [] if dev.type == "cuda" else None
+        t0 = time.perf_counter()
+        resolve_frames_device(tok, litw, ntok, sizes, flags, marks=marks)
+        if marks:
+            marks[-1].synchronize()
+            times.append(marks[0].elapsed_time(marks[-1]))
+        else:
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(reps):
+        k2()
+    total = sum(sizes)
+    return _bench.result(
+        "k2_resolve", "pallas_resolve.phase_b",
+        f"{n_frames} lanes x 32 KiB frames, hist flags 0, two passes",
+        dev, total, sum(times) / reps, reps, lanes=n_frames,
+        errors=int((cnth[0] != 0).sum()),
+        cnt_ok=int((counts.numpy() == np.asarray(sizes)).sum()),
+        sampled_bit_exact=bool(exact), max_steps=int(cnth[2].max()),
+        tokens=int(cnth[2].sum()), plain_max_abs_err=err,
+        k1_plain_max_abs_err=k1_err,
+        launch=launch_config(dev, n_frames, n_frames, max(sizes)),
+        peak_bytes=_bench.peak(dev))

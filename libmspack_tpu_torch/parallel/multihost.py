@@ -147,14 +147,15 @@ def _rank_main(rank, world, backend, device, init, fn, args, results):
         raise
 
 
-def spawn(fn, world_size: int, backend: str = "gloo", device: str = "cpu",
+def spawn(fn, world_size: int, backend: str = "gloo", device: str = "cuda",
           args: tuple = (), timeout_s: float = 600.0) -> list:
     """Run ``fn(device, *args)`` in ``world_size`` new processes that form
     a process group (``backend``, rendezvous through a file in a temporary
     directory), and return each rank's result in rank order. ``device``:
-    ``"cpu"``, or ``"cuda"`` for rank r on card r mod the card count (so
+    ``"cuda"`` (the default) for rank r on card r mod the card count (so
     every rank shares one card where there is one; NCCL refuses that, gloo
-    takes it). ``fn`` and its arguments and results must pickle. Raises
+    takes it), or ``"cpu"`` where the caller asks for the CPU (the tests
+    do). ``fn`` and its arguments and results must pickle. Raises
     with the rank's traceback if a rank fails, and ``TimeoutError`` (after
     killing every rank) if the group does not finish in ``timeout_s``."""
     ctx = multiprocessing.get_context("spawn")

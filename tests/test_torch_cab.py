@@ -399,6 +399,12 @@ def test_port_imports_no_jax():
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    s = entry.dryrun_multichip(1, backend='gloo', device='cpu')\n"
         "assert s['launches']['cuda_lzx']['plain'] > 0, s\n"
+        "from libmspack_tpu_torch import bench as port_bench\n"
+        "from libmspack_tpu_torch.tools import (bench_kernels, cut_bisect,\n"
+        "    devtime, inflate_bench, mesh_scaling, scaling_model)\n"
+        "from libmspack_tpu_torch.ops import cuda_inflate\n"
+        "e = cuda_inflate.bench_entry(4, 4, device='cpu')\n"
+        "assert e['sampled_bit_exact'] and e['errors'] == 0, e\n"
         "bad = [m for m in sys.modules if m in ('jax', 'bench', 'devtime')\n"
         "       or m.split('.')[0] in ('libmspack_tpu', 'tools')]\n"
         "assert not bad, bad\n"
