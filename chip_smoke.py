@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels (nvcc, sm_90a); print the build time, each kernel's
    ptxas report (stack frame, spills, registers, shared memory) and the
-   SASS summary of K1, K2's two passes, K3 and K4 (loads and stores by
+   SASS summary of K1, K2's two passes, K3 and K4, and of the probes P1
+   and P3, each faithful port beside its redesign (loads and stores by
    memory space, ``tools/sass.py``);
 3. K1 against its plain version on the edge-case batch
    (libmspack_tpu_torch/edge_cases.py): counts, tokens and resolved bytes
@@ -462,6 +463,10 @@ def extract_chm(d, blob):
 
 DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
             "k3_lzx_kernel", "k4_qtm_kernel")
+# P1's and P3's faithful ports, each beside its redesign
+PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",
+              "p1_vec_kernel<false>", "p1_vec_kernel<true>", "p1_reg_kernel",
+              "p3_copy_kernel", "p3_par_kernel")
 
 
 def build_report(t0, names):
@@ -522,7 +527,7 @@ def run(device_name="cuda", total_mb=96, edge_frame=32768, lzx_big=1 << 20,
     host = threading.Thread(target=native.lib)
     host.start()
     if device.type == "cuda":
-        build_report(t0, DECODERS)
+        build_report(t0, DECODERS + PROBE_SASS)
     host.join()
     native.lib()   # raises if the host engine did not build
     clock.lap("build")

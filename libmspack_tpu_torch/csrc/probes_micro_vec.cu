@@ -32,8 +32,19 @@
 // What bounds it on this card: latency. A step's key depends on the last
 // step's acc, so a lane is a chain of `steps` searches; the only bytes that
 // must move are the output's.
+//
+// registers (p1_reg_kernel, both variants): the redesign for that chain.
+// One warp per lane fills its table and window in shared memory as vec
+// does (the fill not unrolled), then each thread loads its nine table rows
+// into registers once, before the step loop; a step is nine ballots over
+// them and one indexed window load (probes_vec.cuh). Loading the rows from
+// the filled table, not computing them from the formula, keeps nvcc from
+// folding the table into the compares; tools/sass.py should show the
+// nine LDS before the loop and, a step, one LDS and nine VOTE in it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "probes_vec.cuh"
 
 namespace {
 
@@ -137,7 +148,43 @@ cudaError_t launch_p1(int variant, int L, int steps, int32_t* scratch,
   return cudaGetLastError();
 }
 
+// Lane l's table at tab[0 .. R_TAB), its window right after it, in shared
+// memory; the table's rows then in registers.
+__global__ void p1_reg_kernel(int L, int steps, int32_t miss,
+                              int32_t* __restrict__ out) {
+  __shared__ int32_t smem[VEC_LANES * ROWS];
+  int w = threadIdx.x >> 5, j = threadIdx.x & 31;
+  int l = blockIdx.x * VEC_LANES + w;
+  if (l >= L) return;  // the whole warp
+  int32_t* tab = smem + w * ROWS;
+  int32_t* win = tab + R_TAB;
+#pragma unroll 1
+  for (int n = j; n < R_TAB; n += 32) tab[n] = (l * 7 + n * 13) & 0xFFFF;
+#pragma unroll 1
+  for (int n = j; n < R_WIN; n += 32) win[n] = l + n;
+  __syncwarp();
+  warp::Lanes<int32_t> rows[pv::ROWS_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < pv::ROWS_PER_THREAD; i++) {
+    rows[i].at(j) = tab[j + 32 * i];
+  }
+  int32_t acc = l;
+  for (int t = 0; t < steps; t++) acc = pv::step(acc, t, rows, win, miss);
+  if (j == 0) out[l] = acc;
+}
+
 }  // namespace
+
+// variant 0 sweep, 1 vec; tables in registers (p1_reg_kernel).
+extern "C" int msp_p1_registers(int variant, int L, int steps, void* out,
+                                void* stream) {
+  if (L <= 0) return 0;
+  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
+  p1_reg_kernel<<<(L + VEC_LANES - 1) / VEC_LANES, VEC_LANES * 32, 0,
+                  (cudaStream_t)stream>>>(L, steps, variant ? -1 : 0,
+                                          (int32_t*)out);
+  return (int)cudaGetLastError();
+}
 
 // variant 0 sweep, 1 vec; shared 0: tables in `scratch` (ROWS * L int32),
 // 1: in shared memory (scratch unused).

@@ -15,8 +15,10 @@ CUDA toolkit, and only ``lib()`` needs one.
 ``resolve_core.cuh``, ``lzx_core.cuh``, ``qtm_core.cuh``) with g++
 instead, for the tests: the same C++ the kernels run, on the CPU, the warp
 steps evaluated lane by lane (``stream_core.cuh``) and K2's block steps
-thread by thread. Each twin is keyed by the sha256 of its header and the
-headers it includes.
+thread by thread; ``host_twin_copy()`` and ``host_twin_vec()`` do the same
+for the redesigned probes P3 and P1 (``probes_copy_core.cuh``,
+``probes_vec.cuh``). Each twin is keyed by the sha256 of its header and
+the headers it includes.
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ _SIGNATURES = {
     "msp_k4_qtm": [_P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_int32,
                    _P, _P],
     "msp_p1_vec": [_I, _I, _I, _I, _P, _P, _P],
+    "msp_p1_registers": [_I, _I, _I, _P, _P],
     "msp_p2_skel": [_P, _I64, _P, _I, _I, _I, _I, _P, _P, _P],
     "msp_p3_copy": [_P, _P, _I, _P, _P, _P, _P],
+    "msp_p3_copy_par": [_P, _P, _I, _P, _P, _P, _I, _P],
     "msp_p4_probe": [_I, _P, _P, _I64, _P, _P],
     "msp_p5_dyngather": [_P, _P, _P, _I, _I, _I, _P],
     "msp_p5_masksum": [_P, _P, _P, _I, _I, _P],
@@ -284,6 +288,27 @@ def host_twin_qtm():
     handle.qt_rescale.restype = None
     handle.qt_renorm.argtypes = [_P, _P, _P, _P, _I64, _P]
     handle.qt_renorm.restype = None
+    return handle
+
+
+def host_twin_copy():
+    """P3's block-parallel resolve, its threads one after another:
+    ``pc_resolve_host(seed, tok, nt, lit, out, sc, n, rounds)``, as
+    ``msp_p3_copy_par`` (host pointers), with the jumping rounds it took."""
+    handle = _twin("probes_copy_core.cuh", "PROBES_COPY_CORE_HOST_TWIN",
+                   ["stream_core.cuh"])
+    handle.pc_resolve_host.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P]
+    handle.pc_resolve_host.restype = ctypes.c_int
+    return handle
+
+
+def host_twin_vec():
+    """P1's warp-ballot search over rows in registers, the warp's 32
+    threads emulated: ``pv_search_host(miss, L, steps, out)``."""
+    handle = _twin("probes_vec.cuh", "PROBES_VEC_HOST_TWIN",
+                   ["stream_core.cuh"])
+    handle.pv_search_host.argtypes = [_I, _I, _I, _P]
+    handle.pv_search_host.restype = ctypes.c_int
     return handle
 
 

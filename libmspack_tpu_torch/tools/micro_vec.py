@@ -6,10 +6,18 @@ fetch (``csrc/probes_micro_vec.cu`` says what each step computes). Two
 variants, as on the TPU: ``sweep`` walks the rows one by one (one thread
 per lane; 0 when no row matches) and ``vec`` compares the whole table and
 reduces (one warp per lane; -1 when no row matches). Each runs with its
-tables in global memory or in shared memory. It also times PyTorch's
-gathers, the library rows that stand where the tool timed XLA's.
+tables in global memory or in shared memory, the TPU kernel's mechanisms,
+and with ``tables="registers"``, the redesign for Hopper: one warp per
+lane, each thread holding nine table rows in registers, a step nine warp
+ballots and one window load (``csrc/probes_vec.cuh``). It also times
+PyTorch's gathers, the library rows that stand where the tool timed XLA's.
 
-Run on the card: ``python -m libmspack_tpu_torch.tools.micro_vec``
+Run on the card: ``python -m libmspack_tpu_torch.tools.micro_vec``. After
+the tool's lines it prints each kernel's time at 0, 64 and 256 steps and
+the slope, its cost a dependent step apart from the launch and the fill,
+at 128 to 32768 lanes (``PER_STEP_LANES``): a slope that stays as lanes
+are added is the step's latency, one that grows is the SM's instruction
+rate.
 """
 from __future__ import annotations
 
@@ -26,7 +34,10 @@ R_TAB = 288
 R_WIN = 256
 STEPS = 64
 VARIANTS = ("sweep", "vec")
-TABLES = ("global", "shared")
+TABLES = ("global", "shared", "registers")
+# per_step's lane counts: on the card, and small ones for the plain
+# versions on the CPU
+PER_STEP_LANES = {"cuda": (128, 1024, 8192, 32768), "cpu": (32, 256)}
 
 SOURCE = "probes_micro_vec.cu"
 REPLACES = {f"p1_{v}_{t}": "tools/micro_vec.py:83"
@@ -38,7 +49,8 @@ def search(variant="sweep", tables="global", device="cuda", shape=(SL, LN),
            steps=STEPS) -> torch.Tensor:
     """The tool's kernel: int32 ``(1, *shape)``, each lane's acc after
     ``steps`` steps (lane l is row * LN + column). ``tables`` places the
-    tables in ``"global"`` or ``"shared"`` memory on the card; on the CPU
+    tables in ``"global"`` or ``"shared"`` memory on the card, or the
+    table's rows in ``"registers"`` (the warp-ballot search); on the CPU
     there is one plain version."""
     if variant not in VARIANTS or tables not in TABLES:
         raise ValueError(f"variant in {VARIANTS}, tables in {TABLES}")
@@ -47,6 +59,10 @@ def search(variant="sweep", tables="global", device="cuda", shape=(SL, LN),
         return search_plain(variant, shape, steps)
     L = shape[0] * shape[1]
     out = torch.empty((1, *shape), dtype=torch.int32, device=dev)
+    if tables == "registers":
+        launch(LAUNCHES, f"p1_{variant}_{tables}", "msp_p1_registers", dev,
+               VARIANTS.index(variant), L, steps, out.data_ptr())
+        return out
     scratch = torch.empty((R_TAB + R_WIN) * L if tables == "global" else 1,
                           dtype=torch.int32, device=dev)
     launch(LAUNCHES, f"p1_{variant}_{tables}", "msp_p1_vec", dev,
@@ -101,9 +117,13 @@ def main(argv=(), device="cuda") -> list[Record]:
     for variant in VARIANTS:
         for tables in TABLES:
             out, ms = time_ms(lambda: search(variant, tables, dev), dev)
-            print(f"{variant} ({tables} tables): {ms:.3f} ms/call, "
+            where, fetch = (
+                ("table rows in registers", "one window load")
+                if tables == "registers" else
+                (f"{tables} tables", f"{R_WIN}-row fetch"))
+            print(f"{variant} ({where}): {ms:.3f} ms/call, "
                   f"{ms / STEPS * 1e3:.2f} us/step ({R_TAB}-row probe + "
-                  f"{R_WIN}-row fetch per step)", flush=True)
+                  f"{fetch} per step)", flush=True)
             records.append(Record(
                 f"p1_{variant}_{tables}", f"({SL}, {LN}) lanes", ms,
                 out.cpu(), lambda v=variant: search_plain(v),
@@ -112,7 +132,27 @@ def main(argv=(), device="cuda") -> list[Record]:
                 # it) and the sum
                 chain=STEPS * (1 + log2c(R_TAB) + 1)))
     gather_bench(dev)
+    for n in PER_STEP_LANES[dev.type]:
+        per_step(dev, shape=(max(1, n // LN), min(n, LN)))
     return records
+
+
+def per_step(dev, steps=(0, STEPS, 4 * STEPS), shape=(SL, LN)) -> dict:
+    """``{(variant, tables): [ms at each of steps]}`` at ``shape``'s
+    lanes, printed with the slope in ns a step."""
+    out = {}
+    for variant in VARIANTS:
+        for tables in TABLES:
+            ms = [time_ms(lambda s=s: search(variant, tables, dev, shape,
+                                             s), dev)[1]
+                  for s in steps]
+            out[variant, tables] = ms
+            slope = (ms[-1] - ms[0]) / (steps[-1] - steps[0]) * 1e6
+            print(f"{variant} ({tables}), {shape[0] * shape[1]} lanes: "
+                  + ", ".join(f"{s} steps {m:.4f} ms"
+                              for s, m in zip(steps, ms))
+                  + f"; {slope:.1f} ns/step", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ interpret=True)`` serves micro_skel and ``MC_INTERP=1`` micro_copy.
 Where a TPU kernel reads scratch it never wrote (micro_skel's windows,
 stage_store's stage, dma_row's other rows; interpret mode fills them with
 INT32_MIN), the port defines 0; the inputs here keep such values from the
-compared output, and the cases say where.
+compared output, or compare them as 0 (micro_copy's frame), and the cases
+say where.
 """
 import functools
 import importlib.util
@@ -102,6 +103,45 @@ def test_micro_vec_matches_jax(jax_tool, monkeypatch, variant):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.fixture(scope="module")
+def vec_twin():
+    try:
+        return kernels.host_twin_vec()
+    except RuntimeError as e:
+        pytest.skip(f"g++ build of the kernel core unavailable: {e}")
+
+
+@pytest.mark.parametrize("variant", ["sweep", "vec"])
+@pytest.mark.parametrize("shape,steps", [((2, 16), 8), ((8, 128), 64)])
+def test_micro_vec_registers_twin(vec_twin, variant, shape, steps):
+    """The warp-ballot step (probes_vec.cuh), its 32 threads emulated,
+    equals search_plain for both variants, the steps where no row
+    matches included (each variant's own miss value: the variants differ
+    only there, so they differ only if such steps occur)."""
+    assert not torch.equal(micro_vec.search_plain("sweep", shape, steps),
+                           micro_vec.search_plain("vec", shape, steps))
+    L = shape[0] * shape[1]
+    out = np.zeros(L, np.int32)
+    miss = 0 if variant == "sweep" else -1
+    assert vec_twin.pv_search_host(miss, L, steps, out.ctypes.data) == 0
+    want = micro_vec.search_plain(variant, shape, steps)
+    np.testing.assert_array_equal(out, want.numpy().reshape(-1))
+
+
+def test_micro_vec_per_step_on_cpu(capsys):
+    """main() times every kernel at 0, 64 and 256 steps for each of its
+    per-step lane counts (here the plain versions at the CPU's)."""
+    micro_vec.main([], device="cpu")
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if "ns/step" in ln]
+    lanes = micro_vec.PER_STEP_LANES["cpu"]
+    assert len(lines) == \
+        len(lanes) * len(micro_vec.VARIANTS) * len(micro_vec.TABLES)
+    for n in lanes:
+        assert sum(f" {n} lanes:" in ln for ln in lines) == \
+            len(lines) // len(lanes)
+
+
 def test_micro_vec_variants_differ_on_no_match():
     """sweep gives 0 and vec -1 where no row matches (micro_vec.py:57-59
     against :67-68), so the two functions part."""
@@ -169,31 +209,88 @@ def test_interpret_dma_visible_before_wait():
 
 
 # ---------------------------------------------------------------- P3
-def _copy_cases():
-    tok, lit, _ = micro_copy.make_tokens(seed=1)
-    prefix = tok[:48]
-    # matches past 128 elements: the TPU kernel's chunks leave LZ77's copy
-    longm = np.array([(0, 300, 0), (1, 300, 200), (1, 260, 50),
-                      (0, 7, 0), (1, 129, 1)], np.int32)
-    return {"tool_prefix": (prefix, lit), "long_matches": (longm, lit)}
+# whether the case's frame is LZ77's: the TPU kernel's chunks past 128
+# elements are not
+_LZ77 = {"tool_frame": True, "tool_prefix": True, "long_matches": False}
 
 
-@pytest.mark.parametrize("case", ["tool_prefix", "long_matches"])
+@pytest.mark.parametrize("case", list(micro_copy.inputs()))
 def test_micro_copy_matches_jax(jax_tool, case):
+    """The whole frame and sc. The TPU kernel writes only the tokens'
+    positions; interpret mode leaves the rest INT32_MIN, and a match that
+    reads below seed copies it, where the port defines 0."""
     mc, _ = jax_tool("micro_copy")
-    tok, lit = _copy_cases()[case]
-    run = mc.make_resolver(len(tok))
-    out, sc = run(jnp.zeros((1,), jnp.int32), jnp.asarray(tok),
+    seed, tok, lit = micro_copy.inputs()[case]
+    # the tool cannot trace a (0, 3) token array: no tokens are one
+    # empty literal run there, the same function
+    jtok = tok if len(tok) else np.zeros((1, 3), np.int32)
+    run = mc.make_resolver(len(jtok))
+    out, sc = run(jnp.array([seed], jnp.int32), jnp.asarray(jtok),
                   jnp.asarray(lit))
+    want = np.asarray(out).reshape(-1)
+    want = np.where(want == np.iinfo(np.int32).min, 0, want)
     end = int(np.asarray(sc)[0])
-    got, gsc = micro_copy.resolve(torch.zeros(1, dtype=torch.int32), _t(tok),
-                                  _t(lit), device="cpu")
-    assert int(gsc[0]) == end == int(tok[:, 1].sum())
-    np.testing.assert_array_equal(got.numpy().reshape(-1)[:end],
-                                  np.asarray(out).reshape(-1)[:end])
-    lz = micro_copy.lz77_replay(tok, lit)
-    assert np.array_equal(lz, got.numpy().reshape(-1)[:end]) == \
-        (case == "tool_prefix")
+    got, gsc = micro_copy.resolve(torch.tensor([seed], dtype=torch.int32),
+                                  _t(tok), _t(lit), device="cpu")
+    assert int(gsc[0]) == end == seed + int(tok[:, 1].sum())
+    np.testing.assert_array_equal(got.numpy().reshape(-1), want)
+    if case in _LZ77:
+        lz = micro_copy.lz77_replay(tok, lit)
+        assert np.array_equal(lz, want[:end]) == _LZ77[case]
+
+
+@pytest.fixture(scope="module")
+def copy_twin():
+    try:
+        return kernels.host_twin_copy()
+    except RuntimeError as e:
+        pytest.skip(f"g++ build of the kernel core unavailable: {e}")
+
+
+@pytest.mark.parametrize("case", list(micro_copy.inputs()))
+def test_micro_copy_par_twin(copy_twin, case):
+    """The block-parallel resolve (probes_copy_core.cuh: scans, owners,
+    chunk sources, pointer jumping), its threads one after another,
+    equals resolve_plain: the frame, every element of it, and sc."""
+    seed, tok, lit = micro_copy.inputs()[case]
+    seed = np.array([seed], np.int32)
+    tok = np.ascontiguousarray(tok, np.int32)
+    n = (micro_copy.ROWS + 2) * micro_copy.V
+    micro_copy._check(_t(seed), _t(tok), lit.size, n)
+    out = np.full(n, -5, np.int32)
+    sc, rounds = np.zeros(1, np.int32), np.zeros(1, np.int32)
+    assert copy_twin.pc_resolve_host(
+        seed.ctypes.data, tok.ctypes.data, len(tok), lit.ctypes.data,
+        out.ctypes.data, sc.ctypes.data, n, rounds.ctypes.data) == 0
+    want, wsc = micro_copy.resolve_plain(_t(seed), _t(tok), _t(lit))
+    np.testing.assert_array_equal(out, want.numpy().reshape(-1))
+    assert int(sc[0]) == int(wsc[0]) == int(seed[0]) + int(tok[:, 1].sum())
+    assert 1 <= int(rounds[0]) <= 17
+
+
+def test_micro_copy_breakdown_on_cpu():
+    """main() runs both kernels (here the plain versions) on every input
+    of inputs(), each checked; both rows of an input share one bound, the
+    function's: its chain is the scans, the owner search, the source, the
+    jumping rounds its longest chain of copies needs and the write, far
+    below the tool frame's 1080-token walk."""
+    records = micro_copy.main([], device="cpu")
+    cases = micro_copy.inputs()
+    assert [r.label.split(":")[0] for r in records] == \
+        [c for c in cases for _ in micro_copy.REPLACES]
+    for a, b in zip(records[::2], records[1::2]):
+        assert (a.kernel, b.kernel) == tuple(micro_copy.REPLACES)
+        assert (a.nbytes, a.chain) == (b.nbytes, b.chain)
+    frame = records[0]
+    assert frame.label.startswith("tool_frame")
+    assert frame.nbytes == max(r.nbytes for r in records)
+    # log2 of 1080 tokens and 32587 positions, the source, 4 rounds (the
+    # longest chain, 8-15 copies) and the write
+    assert frame.chain == 11 + 15 + 1 + 4 + 1
+    # every chunk of a match reads from dst - dist, so a dist-1 run of
+    # 4000 is no deeper than its first 128 elements: 8 copies, 4 rounds
+    dist1 = records[2 * list(cases).index("dist1_run")]
+    assert dist1.chain == 1 + 12 + 1 + 4 + 1
 
 
 def test_micro_copy_rejects_reads_outside():
@@ -381,8 +478,10 @@ def test_probe_kernels_in_the_library():
     srcs = {os.path.basename(s) for s in kernels._sources(["*.cu", "*.cuh"])}
     for mod in MODULES:
         assert mod.SOURCE in srcs
-    assert "probes_gather.cuh" in srcs
-    for name in ("msp_p1_vec", "msp_p2_skel", "msp_p3_copy", "msp_p4_probe",
+    assert {"probes_gather.cuh", "probes_copy_core.cuh",
+            "probes_vec.cuh"} <= srcs
+    for name in ("msp_p1_vec", "msp_p1_registers", "msp_p2_skel",
+                 "msp_p3_copy", "msp_p3_copy_par", "msp_p4_probe",
                  "msp_p5_dyngather", "msp_p5_masksum", "msp_p5_symbol_step",
                  "msp_p6_masksum", "msp_p6_symbol_step"):
         assert name in kernels._SIGNATURES
