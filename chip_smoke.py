@@ -463,10 +463,12 @@ def extract_chm(d, blob):
 
 DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
             "k3_lzx_kernel", "k4_qtm_kernel")
-# P1's and P3's faithful ports, each beside its redesign
+# P1's, P3's and P5's faithful ports, each beside its redesign
 PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",
               "p1_vec_kernel<false>", "p1_vec_kernel<true>", "p1_reg_kernel",
-              "p3_copy_kernel", "p3_par_kernel")
+              "p3_copy_kernel", "p3_par_kernel", "p5_dyngather_kernel",
+              "p5_cluster_kernel", "p5_symbol_kernel",
+              "p5_symbol_smem_kernel")
 
 
 def build_report(t0, names):
@@ -2163,7 +2165,8 @@ def probe_phases(device, clock, records=None):
                   f"{r.label}: kernel {r.ms:.4f} ms, plain {plain_ms:.1f} "
                   f"ms{lib}; launches {launches[kernel]}; bound "
                   f"{bound(r.nbytes, r.chain)}", flush=True)
-            entries.append(entry(kernel, mod.SOURCE, mod.REPLACES[kernel],
+            source = getattr(mod, "SOURCES", {}).get(kernel, mod.SOURCE)
+            entries.append(entry(kernel, source, mod.REPLACES[kernel],
                                  launches[kernel], err, r.ms, plain_ms,
                                  r.nbytes, r.chain, r.library_ms))
         clock.lap(f"15 probes: {name}")

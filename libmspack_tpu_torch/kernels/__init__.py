@@ -15,10 +15,11 @@ CUDA toolkit, and only ``lib()`` needs one.
 ``resolve_core.cuh``, ``lzx_core.cuh``, ``qtm_core.cuh``) with g++
 instead, for the tests: the same C++ the kernels run, on the CPU, the warp
 steps evaluated lane by lane (``stream_core.cuh``) and K2's block steps
-thread by thread; ``host_twin_copy()`` and ``host_twin_vec()`` do the same
-for the redesigned probes P3 and P1 (``probes_copy_core.cuh``,
-``probes_vec.cuh``). Each twin is keyed by the sha256 of its header and
-the headers it includes.
+thread by thread; ``host_twin_copy()``, ``host_twin_vec()`` and
+``host_twin_gather()`` do the same for the redesigned probes P3, P1 and P5
+(``probes_copy_core.cuh``, ``probes_vec.cuh``,
+``probes_gather_core.cuh``). Each twin is keyed by the sha256 of its
+header and the headers it includes.
 """
 from __future__ import annotations
 
@@ -62,6 +63,8 @@ _SIGNATURES = {
     "msp_p5_dyngather": [_P, _P, _P, _I, _I, _I, _P],
     "msp_p5_masksum": [_P, _P, _P, _I, _I, _P],
     "msp_p5_symbol_step": [_P, _P, _P, _P, _I, _I, _P],
+    "msp_p5_dyngather_cluster": [_P, _P, _P, _I, _I, _P, _P],
+    "msp_p5_symbol_smem": [_P, _P, _P, _P, _I, _I, _P],
     "msp_p6_masksum": [_P, _P, _P, _I, _I, _P],
     "msp_p6_symbol_step": [_P, _P, _P, _P, _P, _I, _I, _P],
     # launch resources (csrc/launch_info.cuh): no stream, an int[5] out
@@ -309,6 +312,28 @@ def host_twin_vec():
                    ["stream_core.cuh"])
     handle.pv_search_host.argtypes = [_I, _I, _I, _P]
     handle.pv_search_host.restype = ctypes.c_int
+    return handle
+
+
+def host_twin_gather():
+    """P5's two redesigns, a cluster's blocks and a block's threads one
+    after another: ``pg_dyngather_host(t, idx, out, H, L, S)`` (-1 where a
+    cluster of S blocks cannot hold a tile), ``pg_cluster_size_host(H, L,
+    sms)`` (the S the kernel launches on ``sms`` SMs, 0 for none),
+    ``pg_len_find_host(peek, limit, n, length, code)`` and
+    ``pg_symbol_host(meta, limit, words, out, L, T)``, as
+    ``msp_p5_dyngather_cluster`` and ``msp_p5_symbol_smem`` (host
+    pointers)."""
+    handle = _twin("probes_gather_core.cuh", "PROBES_GATHER_CORE_HOST_TWIN",
+                   ["stream_core.cuh"])
+    handle.pg_dyngather_host.argtypes = [_P, _P, _P, _I, _I, _I]
+    handle.pg_dyngather_host.restype = ctypes.c_int
+    handle.pg_cluster_size_host.argtypes = [_I, _I, _I]
+    handle.pg_cluster_size_host.restype = ctypes.c_int
+    handle.pg_len_find_host.argtypes = [_P, _P, _I, _P, _P]
+    handle.pg_len_find_host.restype = None
+    handle.pg_symbol_host.argtypes = [_P, _P, _P, _P, _I, _I]
+    handle.pg_symbol_host.restype = None
     return handle
 
 

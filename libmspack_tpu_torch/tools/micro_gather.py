@@ -9,17 +9,32 @@ are ``(rows, L)``, lane l in column l. Beside each gather, PyTorch's own
 call (``torch.gather``, ``torch.take``) is timed as the library row, as the
 tool timed XLA's.
 
-Run on the card: ``python -m libmspack_tpu_torch.tools.micro_gather``
+Two of the kernels have a Hopper redesign beside the faithful port
+(``csrc/probes_gather_cluster.cu``, ``probes_gather_core.cuh``):
+``dyngather(..., design="cluster")`` holds each tile of 4 columns of the
+table in the shared memory of a thread-block cluster
+(``p5_dyngather_axis0_cluster``), and ``symbol_step(..., design="smem")``
+stages each block's tables in shared memory and finds the code length
+without a branch (``p5_symbol_step_smem``).
+
+Run on the card: ``python -m libmspack_tpu_torch.tools.micro_gather``.
+It times both designs at every shape the faithful kernels run, then each
+redesign on small edge shapes (a rank boundary that is no power of two,
+clamped indices, a tail tile, unaligned inputs, a part-full block), and
+at (32768, 128) both gathers in turns: warm, with the table out of L2,
+and with each element reading its own row, which prices a random read
+from L2 and through the cluster's shared window (``compare_in_turns``).
 """
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
 import torch
 
 from . import Record, Work, int32, launch, log2c, on, tensor, wrap32
-from .timing import header, time_ms
+from .timing import header, time_cold_ms, time_ms
 
 N = 288            # rows of a per-lane table
 M32 = 0xFFFFFFFF
@@ -30,28 +45,53 @@ GATHER_SHAPES = [(0, 8, 128), (0, 16, 128), (0, 32, 128), (0, 288, 128),
 MASKSUM_SHAPES = [(8, 128), (8, 1024)]
 SYMBOL_LANES = 8 * 1024
 SYMBOL_T = 256
+COLD_SHAPE = (32768, 128)   # the axis-0 shape also timed in turns
+# the redesigns' edge shapes (H, L): 41 rows a rank at 8 blocks, a ragged
+# last rank, ranks with no rows and a tail tile, one row
+EDGE_GATHERS = [(328, 8), (37, 12), (5, 3), (1, 12)]
+EDGE_LANES = 100     # the staged symbol step with a part-full block
 
 SOURCE = "probes_micro_gather.cu"
 REPLACES = {"p5_dyngather_axis0": "tools/micro_gather.py:67",
             "p5_dyngather_axis1": "tools/micro_gather.py:82",
             "p5_masksum": "tools/micro_gather.py:132",
-            "p5_symbol_step": "tools/micro_gather.py:206"}
+            "p5_symbol_step": "tools/micro_gather.py:206",
+            "p5_dyngather_axis0_cluster": "tools/micro_gather.py:67",
+            "p5_symbol_step_smem": "tools/micro_gather.py:206"}
+SOURCES = {"p5_dyngather_axis0_cluster": "probes_gather_cluster.cu",
+           "p5_symbol_step_smem": "probes_gather_cluster.cu"}
 LAUNCHES = dict.fromkeys(REPLACES, 0)
 
 
-def dyngather(t, i, axis, device="cuda") -> torch.Tensor:
+def dyngather(t, i, axis, device="cuda", design="faithful",
+              info: dict = None) -> torch.Tensor:
     """``take_along_axis(t, i, axis)`` for int32 ``(H, L)`` t and i; an
-    index outside its axis is clamped to it."""
+    index outside its axis is clamped to it. ``design="cluster"`` (axis 0
+    only) launches the cluster gather, whose C entry picks the blocks a
+    cluster from H, L and the card's SMs and fails (RuntimeError) where 8
+    blocks cannot hold a tile; ``info`` (a dict) receives that count as
+    ``info["cluster"]``."""
     t, i = int32(t, "t"), int32(i, "i", t.shape)
     if t.dim() != 2 or axis not in (0, 1):
         raise ValueError("t must be 2-D and axis 0 or 1")
+    if design not in ("faithful", "cluster") or \
+            (design == "cluster" and axis != 0):
+        raise ValueError("design is 'faithful', or 'cluster' on axis 0")
+    H, L = t.shape
     dev, (t, i) = on(device, t, i)
     if dev.type == "cpu":
         return dyngather_plain(t, i, axis)
     out = torch.empty_like(t)
-    launch(LAUNCHES, f"p5_dyngather_axis{axis}", "msp_p5_dyngather", dev,
-           t.data_ptr(), i.data_ptr(), out.data_ptr(), t.shape[0], t.shape[1],
-           axis)
+    if design == "cluster":
+        S = ctypes.c_int(0)
+        launch(LAUNCHES, "p5_dyngather_axis0_cluster",
+               "msp_p5_dyngather_cluster", dev, t.data_ptr(), i.data_ptr(),
+               out.data_ptr(), H, L, ctypes.addressof(S))
+        if info is not None:
+            info["cluster"] = S.value
+    else:
+        launch(LAUNCHES, f"p5_dyngather_axis{axis}", "msp_p5_dyngather",
+               dev, t.data_ptr(), i.data_ptr(), out.data_ptr(), H, L, axis)
     return out
 
 
@@ -96,20 +136,28 @@ def check_symbol_inputs(meta, limit, stream):
             int32(stream, "stream", (32, L)))
 
 
-def symbol_step(meta, limit, stream, steps=SYMBOL_T, device="cuda"):
+def symbol_step(meta, limit, stream, steps=SYMBOL_T, device="cuda",
+                design="faithful"):
     """``steps`` mock DEFLATE symbols per lane: meta int32 ``(288, L)``,
     limit int32 ``(16, L)`` (rows 1-14 used), stream ``(32, L)`` uint32
     words (or their int32 bits). Returns each lane's sum of meta, int32
-    ``(L,)`` (the tool's ``(8, L // 8)`` flattened)."""
+    ``(L,)`` (the tool's ``(8, L // 8)`` flattened). ``design="smem"``
+    launches the staged step."""
     meta, limit, stream = check_symbol_inputs(meta, limit, stream)
+    if design not in ("faithful", "smem"):
+        raise ValueError("design is 'faithful' or 'smem'")
     dev, (meta, limit, stream) = on(device, meta, limit, stream)
     if dev.type == "cpu":
         return symbol_step_plain(meta, limit, stream, steps)
     L = meta.shape[1]
     out = torch.empty(L, dtype=torch.int32, device=dev)
-    launch(LAUNCHES, "p5_symbol_step", "msp_p5_symbol_step", dev,
-           meta.data_ptr(), limit.data_ptr(), stream.data_ptr(),
-           out.data_ptr(), L, steps)
+    ptrs = (meta.data_ptr(), limit.data_ptr(), stream.data_ptr(),
+            out.data_ptr(), L, steps)
+    if design == "smem":
+        launch(LAUNCHES, "p5_symbol_step_smem", "msp_p5_symbol_smem", dev,
+               *ptrs)
+    else:
+        launch(LAUNCHES, "p5_symbol_step", "msp_p5_symbol_step", dev, *ptrs)
     return out
 
 
@@ -184,6 +232,10 @@ def bench_library(dev):
 
 
 def bench_gather(dev) -> list[Record]:
+    """Each shape of GATHER_SHAPES through the faithful kernel and, on
+    axis 0, the cluster gather, beside ``torch.gather``; at COLD_SHAPE
+    both in turns (``compare_in_turns``); then the cluster gather's edge
+    shapes (``edge_gathers``)."""
     print("== dynamic gather kernel ==", flush=True)
     rng = np.random.RandomState(1)
     records = []
@@ -197,14 +249,98 @@ def bench_gather(dev) -> list[Record]:
         out, ms = time_ms(lambda: dyngather(td, id_, axis, dev), dev)
         il = id_.long()
         _, lib_ms = time_ms(lambda: torch.gather(td, axis, il), dev)
-        print(f"  dg axis{axis} ({H},{L}): {ms:.3f} ms  "
+        print(f"  dg axis{axis} ({H},{L}): {ms:.4f} ms  "
               f"{H * L / ms / 1e6:.2f} G elem/s  (torch.gather "
-              f"{lib_ms:.3f} ms)", flush=True)
+              f"{lib_ms:.4f} ms)", flush=True)
         records.append(Record(
             f"p5_dyngather_axis{axis}", f"({H},{L})", ms, out.cpu(),
             lambda t=t, i=i, a=axis: dyngather(t, i, a, "cpu"),
             nbytes=12 * H * L, chain=1, library_ms=lib_ms))
+        if axis != 0:
+            continue
+        info = {}
+        out, ms = time_ms(
+            lambda: dyngather(td, id_, 0, dev, "cluster", info), dev)
+        print(f"  dg axis0 cluster ({H},{L}), {info.get('cluster')} blocks "
+              f"a cluster: {ms:.4f} ms  {H * L / ms / 1e6:.2f} G elem/s",
+              flush=True)
+        records.append(Record(
+            "p5_dyngather_axis0_cluster", f"({H},{L})", ms, out.cpu(),
+            lambda t=t, i=i: dyngather(t, i, 0, "cpu"),
+            nbytes=12 * H * L, chain=1, library_ms=lib_ms))
+        if (H, L) == COLD_SHAPE and dev.type == "cuda":
+            compare_in_turns(td, id_, dev)
+    return records + edge_gathers(dev)
+
+
+def edge_gathers(dev) -> list[Record]:
+    """The cluster gather on EDGE_GATHERS, each with indices below 0 and
+    past H (clamped) beside random ones, at H = 328 also each rank
+    boundary 41 m and the row under it; (37, 12) once more with t and idx
+    4 bytes off 16-byte alignment (the kernel's element paths)."""
+    rng = np.random.RandomState(4)
+    records = []
+    for H, L, unaligned in [(H, L, False) for H, L in EDGE_GATHERS] + \
+            [(37, 12, True)]:
+        t = tensor(rng.randint(-1 << 31, 1 << 31, (H, L), dtype=np.int64)
+                   .astype(np.int32))
+        i = rng.randint(-3, H + 6, (H, L)).astype(np.int32)
+        i.flat[:4] = [-3, 0, H - 1, H + 5]
+        if H == 328:
+            edges = [41 * m + d for m in range(1, 8) for d in (-1, 0)]
+            i.flat[4:4 + len(edges)] = edges
+        i = tensor(i)
+        td, id_ = t.to(dev), i.to(dev)
+        if unaligned:
+            td, id_ = (torch.cat([torch.zeros(1, dtype=torch.int32,
+                                              device=dev), x.flatten()])[1:]
+                       .view(H, L) for x in (td, id_))
+        info = {}
+        out, ms = time_ms(
+            lambda: dyngather(td, id_, 0, dev, "cluster", info), dev)
+        label = f"({H},{L}) edges" + (", unaligned" if unaligned else "")
+        print(f"  dg axis0 cluster {label}, {info.get('cluster')} blocks a "
+              f"cluster: {ms:.4f} ms", flush=True)
+        records.append(Record(
+            "p5_dyngather_axis0_cluster", label, ms, out.cpu(),
+            lambda t=t, i=i: dyngather(t, i, 0, "cpu"),
+            nbytes=12 * H * L, chain=1))
     return records
+
+
+def compare_in_turns(td, id_, dev, rounds=3) -> None:
+    """The faithful and the cluster axis-0 gather in turns (ABBA, ``rounds``
+    times; each line the mean per run): warm (as ``time_ms``) and with the
+    table out of L2 (``time_cold_ms``) on the tool's random idx, and warm
+    with each element reading its own row (idx = h: the faithful kernel's
+    reads of t coalesce, the cluster kernel's stay in the block's own rows,
+    in order). Random less own row, over the H L reads, is what a random
+    4-byte read costs from L2 and through the cluster's shared window."""
+    H, L = td.shape
+    own = torch.arange(H, dtype=torch.int32, device=dev)[:, None] \
+        .expand(H, L).contiguous()
+    runs = {"faithful": lambda: dyngather(td, id_, 0, dev),
+            "cluster": lambda: dyngather(td, id_, 0, dev, "cluster"),
+            "faithful own row": lambda: dyngather(td, own, 0, dev),
+            "cluster own row": lambda: dyngather(td, own, 0, dev, "cluster")}
+    warm = None
+    for kind, timer, names in (("warm", time_ms, list(runs)),
+                               ("L2 cold", time_cold_ms, list(runs)[:2])):
+        got = {name: [] for name in names}
+        for _ in range(rounds):
+            for name in names + names[::-1]:
+                got[name].append(timer(runs[name], dev)[1])
+        ms = {k: sum(v) / len(v) for k, v in got.items()}
+        warm = warm or ms
+        print(f"  dg axis0 ({H},{L}) in turns, {kind}, mean of "
+              f"{2 * rounds}: " + ", ".join(f"{k} {v:.4f} ms"
+                                            for k, v in ms.items()),
+              flush=True)
+    for name in ("faithful", "cluster"):
+        cost = warm[name] - warm[f"{name} own row"]
+        print(f"  {name}: {H * L / 1e6:.2f} M random reads add {cost:.4f} "
+              f"ms over own rows, {H * L / cost / 1e6:.1f} G reads/s",
+              flush=True)
 
 
 def bench_masksum(dev) -> list[Record]:
@@ -238,30 +374,41 @@ def symbol_inputs(L, seed):
     return tensor(meta), tensor(limit), tensor(stream)
 
 
-def bench_symbol_step(dev) -> Record:
+def bench_symbol_step(dev) -> list[Record]:
+    """The tool's symbol step through the faithful kernel and the staged
+    one, then the staged one on EDGE_LANES lanes; each with the bound of
+    its run."""
     print("== mock symbol step ==", flush=True)
-    L, T = SYMBOL_LANES, SYMBOL_T
-    ins = symbol_inputs(L, 3)
-    insd = [t.to(dev) for t in ins]
-    out, ms = time_ms(lambda: symbol_step(*insd, T, dev), dev)
-    sym = T * L
-    print(f"  {sym} symbols in {ms:.3f} ms = {sym / ms / 1e3:.1f} M sym/s "
-          f"(~{sym * 4 / ms / 1e3:.0f} MB/s at 4 B/sym), "
-          f"{ms * 1e6 / T:.0f} ns/step", flush=True)
-    work = Work(L)
-    symbol_step_plain(*ins, T, work)
-    return Record("p5_symbol_step", f"{L} lanes x {T}", ms, out.cpu(),
-                  lambda: symbol_step(*ins, T, "cpu"),
-                  nbytes=work.nbytes() + 4 * L, chain=work.chain())
+    T = SYMBOL_T
+    records = []
+    for L, design in ((SYMBOL_LANES, "faithful"), (SYMBOL_LANES, "smem"),
+                      (EDGE_LANES, "smem")):
+        ins = symbol_inputs(L, 3)
+        insd = [t.to(dev) for t in ins]
+        work = Work(L)
+        symbol_step_plain(*ins, T, work)
+        out, ms = time_ms(lambda: symbol_step(*insd, T, dev, design), dev)
+        sym = T * L
+        name = "p5_symbol_step" + ("" if design == "faithful" else "_smem")
+        label = f"{L} lanes x {T}"
+        print(f"  {name} {label}: {sym} symbols in {ms:.4f} ms = "
+              f"{sym / ms / 1e3:.1f} M sym/s (~{sym * 4 / ms / 1e3:.0f} "
+              f"MB/s at 4 B/sym), {ms * 1e6 / T:.0f} ns/step", flush=True)
+        records.append(Record(name, label, ms, out.cpu(),
+                              lambda ins=ins: symbol_step(*ins, T, "cpu"),
+                              nbytes=work.nbytes() + 4 * L,
+                              chain=work.chain()))
+    return records
 
 
 def main(argv=(), device="cuda") -> list[Record]:
+    """The tool's runs."""
     dev, _ = on(device)
     print(header(dev), flush=True)
     bench_library(dev)
     records = bench_gather(dev)
     records += bench_masksum(dev)
-    records.append(bench_symbol_step(dev))
+    records += bench_symbol_step(dev)
     return records
 
 

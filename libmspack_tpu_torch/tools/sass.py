@@ -31,7 +31,8 @@ KERNELS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
            "p1_sweep_kernel", "p1_vec_kernel", "p1_reg_kernel",
            "p2_skel_kernel", "p3_copy_kernel", "p3_par_kernel",
            "p5_dyngather_kernel", "p5_masksum_kernel",
-           "p5_symbol_kernel", "p6_masksum_kernel", "p6_symbol_kernel",
+           "p5_symbol_kernel", "p5_cluster_kernel", "p5_symbol_smem_kernel",
+           "p6_masksum_kernel", "p6_symbol_kernel",
            "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",
            "minscalar", "smem_scalar", "u64shift", "dma_row")
 OPS = ("LDG", "LDS", "LDL", "LD", "STG", "STS", "STL", "ST", "ISETP", "SEL",

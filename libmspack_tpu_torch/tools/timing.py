@@ -40,6 +40,18 @@ def _detach(out):
     return out.clone() if isinstance(out, torch.Tensor) else out
 
 
+def time_cold_ms(fn, dev: torch.device, reps: int = 10, flush_mb: int = 128):
+    """``(fn()'s result, ms per call)`` with ``flush_mb`` MiB written
+    before each call, more than the card's L2 holds, so ``fn`` finds its
+    inputs in device memory: a graph of ``reps`` (write, ``fn``) pairs
+    timed as ``time_ms`` does, less a graph of the writes alone. Card
+    only; ``fn`` runs (and counts) as in ``time_ms``."""
+    buf = torch.empty(flush_mb << 20, dtype=torch.uint8, device=dev)
+    _, flush = time_ms(lambda: buf.fill_(1), dev, reps)
+    out, both = time_ms(lambda: (buf.fill_(1), fn())[1], dev, reps)
+    return out, both - flush
+
+
 def time_ms(fn, dev: torch.device, reps: int = 10, warmup: int = 1):
     """``(fn()'s result, ms per call)``: on the card the mean over
     ``reps`` calls after ``warmup`` calls (``fn`` must not synchronise the

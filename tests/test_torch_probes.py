@@ -375,6 +375,133 @@ def test_dyngather_matches_jax(jax_tool, axis, H, L):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.fixture(scope="module")
+def gather_twin():
+    try:
+        return kernels.host_twin_gather()
+    except RuntimeError as e:
+        pytest.skip(f"g++ build of the kernel core unavailable: {e}")
+
+
+def _cluster_twin(twin, t, i, S):
+    """The cluster gather's twin (probes_gather_core.cuh) on numpy
+    inputs, its clusters' blocks one after another."""
+    t, i = np.ascontiguousarray(t, np.int32), np.ascontiguousarray(i, np.int32)
+    out = np.full(t.shape, -7, np.int32)
+    rc = twin.pg_dyngather_host(t.ctypes.data, i.ctypes.data,
+                                out.ctypes.data, *t.shape, S)
+    assert rc == 0
+    return out
+
+
+def test_dyngather_cluster_twin_matches_jax(jax_tool, gather_twin):
+    """The cluster gather's twin at the tool's (16, 128) on
+    test_dyngather_matches_jax's inputs, at the cluster the kernel picks
+    on 132 SMs, against the JAX tool's Pallas kernel (interpret mode)."""
+    mg, _ = jax_tool("micro_gather")
+    rng = np.random.RandomState(0)
+    t = rng.randint(0, 100, (16, 128)).astype(np.int32)
+    i = rng.randint(0, 16, (16, 128)).astype(np.int32)
+    want = np.asarray(mg.pallas_dyngather_axis0(16, 128)(jnp.asarray(t),
+                                                        jnp.asarray(i)))
+    S = gather_twin.pg_cluster_size_host(16, 128, 132)
+    np.testing.assert_array_equal(_cluster_twin(gather_twin, t, i, S), want)
+
+
+@pytest.mark.parametrize("S", [1, 2, 8])
+@pytest.mark.parametrize("H,L", [(16, 128), (288, 1024), (1, 12), (37, 12),
+                                 (5, 3), (300, 20), (328, 8)])
+def test_dyngather_cluster_twin(gather_twin, H, L, S):
+    """The twin equals dyngather_plain on every cluster: the tool's (16,
+    128) and (288, 1024) on test_dyngather_matches_jax's inputs, then
+    shapes that stress the map (H = 1, H not a multiple of S, L = 12 and 3
+    and 20: a tail tile) with indices at -3, 0, H - 1 and H + 5 (clamped)
+    beside random ones; at H = 328 (41 rows a rank at S = 8, where the
+    float rank of k = 41 m falls just under m) the indices 41 m and 41 m
+    - 1 too."""
+    rng = np.random.RandomState(0)
+    t = rng.randint(0, 100, (H, L)).astype(np.int32)
+    if (H, L) in ((16, 128), (288, 1024)):
+        i = rng.randint(0, H, (H, L)).astype(np.int32)
+    else:
+        t = rng.randint(-1 << 31, 1 << 31, (H, L), dtype=np.int64) \
+            .astype(np.int32)
+        i = rng.randint(-3, H + 6, (H, L)).astype(np.int32)
+        i.flat[:4] = [-3, 0, H - 1, H + 5]
+        if H == 328:
+            edges = [41 * m + d for m in range(1, 8) for d in (-1, 0)]
+            i.flat[4:4 + len(edges)] = edges
+    want = micro_gather.dyngather_plain(_t(t), _t(i), 0).numpy()
+    np.testing.assert_array_equal(_cluster_twin(gather_twin, t, i, S), want)
+
+
+def test_cluster_size_and_refusals(gather_twin):
+    """The cluster the kernel picks on 132 SMs: 8 blocks for every axis-0
+    shape of the tool at L = 128 (32 tiles), 1 at L = 1024 (256 tiles); at
+    each of the tool's edge shapes the one the twin tests pin (41 rows a
+    rank at H = 328); 8 blocks hold at most 116,224 rows, and the kernel
+    refuses a table past that, as the twin does a cluster that is no power
+    of two or past 8; the cluster design on axis 1 raises."""
+    size = gather_twin.pg_cluster_size_host
+    got = [size(H, L, 132)
+           for axis, H, L in micro_gather.GATHER_SHAPES if axis == 0]
+    assert got == [8] * 7 + [1] * 2
+    assert [size(H, L, 132) for H, L in micro_gather.EDGE_GATHERS] == \
+        [8, 8, 4, 1]
+    assert size(116224, 8, 132) == 8 and size(116225, 8, 132) == 0
+    assert size(116224, 1024, 132) == 8 and size(58112, 1024, 132) == 4
+    for H, S in ((116225, 8), (8, 3), (8, 16), (0, 1)):
+        assert gather_twin.pg_dyngather_host(None, None, None, H, 8, S) == -1
+    z = torch.zeros((8, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="axis 0"):
+        micro_gather.dyngather(z, z, 1, "cpu", "cluster")
+
+
+_LEN_CASES = {   # (peek, limits 1-14 by bl): (length, code)
+    "no_hit": (0x7FFF, [1] * 14, (15, 0)),
+    "all_limits_0": (0x1234, [0] * 14, (15, 0)),
+    "only_bl_1": (0x7FFF, [2] + [0] * 13, (1, 1)),
+    "only_bl_14": (0x7FFF, [0] * 13 + [0x4000], (14, 0x3FFF)),
+    "peek_0": (0, [0, 0, 5] + [1] * 11, (3, 0)),
+    "peek_7fff": (0x7FFF, [1, 3, 7, 16] + [1 << 15] * 10, (4, 15)),
+}
+
+
+@pytest.mark.parametrize("case", list(_LEN_CASES))
+def test_len_find_branch_free(gather_twin, case):
+    """The branch-free length find (a mask of 14 compares, its lowest set
+    bit) equals len_find_plain on the case's lane and on 64 random
+    lanes beside it."""
+    peek0, lims, want = _LEN_CASES[case]
+    rng = np.random.RandomState(7)
+    n = 65
+    peek = rng.randint(0, 1 << 15, n).astype(np.int32)
+    limit = rng.randint(0, 1 << 15, (16, n)).astype(np.int32)
+    peek[0], limit[1:15, 0] = peek0, lims
+    length, code = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    gather_twin.pg_len_find_host(peek.ctypes.data, limit.ctypes.data, n,
+                                 length.ctypes.data, code.ctypes.data)
+    wl, wc = micro_gather.len_find_plain(torch.from_numpy(peek).long(),
+                                         _t(limit))
+    assert (int(length[0]), int(code[0])) == want
+    np.testing.assert_array_equal(length, wl.numpy())
+    np.testing.assert_array_equal(code, wc.numpy())
+
+
+@pytest.mark.parametrize("L,T", [(16, 40), (100, 40), (128, 40)])
+def test_symbol_smem_twin(gather_twin, L, T):
+    """The staged step's twin, block by block of 64 lanes (16 and 100
+    lanes: a last block part full; 128: whole blocks, copied 16 bytes at
+    a time), equals symbol_step_plain."""
+    meta, limit, stream = (x.numpy().copy()
+                           for x in micro_gather.symbol_inputs(L, 3))
+    out = np.zeros(L, np.int32)
+    gather_twin.pg_symbol_host(meta.ctypes.data, limit.ctypes.data,
+                               stream.ctypes.data, out.ctypes.data, L, T)
+    want = micro_gather.symbol_step_plain(_t(meta), _t(limit), _t(stream), T)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
 def _first_timed(mod, make_args):
     """Replace ``mod.timeit``: the first call runs the function it was
     handed on ``make_args(*its args)`` and keeps the result; every call
@@ -478,11 +605,14 @@ def test_probe_kernels_in_the_library():
     srcs = {os.path.basename(s) for s in kernels._sources(["*.cu", "*.cuh"])}
     for mod in MODULES:
         assert mod.SOURCE in srcs
+        assert set(getattr(mod, "SOURCES", {}).values()) <= srcs
     assert {"probes_gather.cuh", "probes_copy_core.cuh",
-            "probes_vec.cuh"} <= srcs
+            "probes_vec.cuh", "probes_gather_core.cuh",
+            "probes_gather_cluster.cu"} <= srcs
     for name in ("msp_p1_vec", "msp_p1_registers", "msp_p2_skel",
                  "msp_p3_copy", "msp_p3_copy_par", "msp_p4_probe",
                  "msp_p5_dyngather", "msp_p5_masksum", "msp_p5_symbol_step",
+                 "msp_p5_dyngather_cluster", "msp_p5_symbol_smem",
                  "msp_p6_masksum", "msp_p6_symbol_step"):
         assert name in kernels._SIGNATURES
 
