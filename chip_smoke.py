@@ -463,12 +463,18 @@ def extract_chm(d, blob):
 
 DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
             "k3_lzx_kernel", "k4_qtm_kernel")
-# P1's, P3's and P5's faithful ports, each beside its redesign
+# P1's, P3's, P5's and P6's faithful ports, each beside its redesign
 PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",
               "p1_vec_kernel<false>", "p1_vec_kernel<true>", "p1_reg_kernel",
               "p3_copy_kernel", "p3_par_kernel", "p5_dyngather_kernel",
               "p5_cluster_kernel", "p5_symbol_kernel",
-              "p5_symbol_smem_kernel")
+              "p5_symbol_smem_kernel", "p6_masksum_kernel",
+              "p6_masksum_vec_kernel", "p6_symbol_kernel",
+              "p6_symbol_smem_kernel")
+# what a redesign's SASS must show: (kernel, count key, least, most)
+SASS_CHECKS = (("p6_symbol_smem_kernel", "loop LDS", 1, None),
+               ("p6_symbol_smem_kernel", "LDL", 0, 0),
+               ("p6_masksum_vec_kernel", "LDL", 0, 0))
 
 
 def build_report(t0, names):
@@ -486,7 +492,15 @@ def build_report(t0, names):
     for name in names:
         c = found[name]
         print(f"sass {name}: {c['insns']} insns, {c['loops']} loops; "
-              + " ".join(f"{o} {c[o]}" for o in sass.OPS if c[o]))
+              + " ".join(f"{o} {c[o]}" for o in sass.OPS if c[o])
+              + "; in loops: " + " ".join(
+                  f"{o} {c['loop ' + o]}" for o in sass.OPS
+                  if c["loop " + o]))
+    for name, key, least, most in SASS_CHECKS:
+        n = found[name][key]
+        if n < least or (most is not None and n > most):
+            raise AssertionError(f"sass {name}: {key} {n}, want "
+                                 f"{least}..{most}")
 
 
 class Clock:
@@ -2157,7 +2171,8 @@ def probe_phases(device, clock, records=None):
                 raise AssertionError(f"{kernel}: {name}.main() never ran it")
             if device.type == "cuda" and launches[kernel] < 1:
                 raise AssertionError(f"{kernel} never launched in {name}")
-            r, _, plain_ms = max(done, key=lambda d: d[0].nbytes)
+            r, _, plain_ms = max(done, key=lambda d: (not d[0].edge,
+                                                      d[0].nbytes))
             err = max(e for _, e, _ in done)
             lib = "" if r.library_ms is None else \
                 f", library {r.library_ms:.4f} ms"

@@ -15,10 +15,11 @@ CUDA toolkit, and only ``lib()`` needs one.
 ``resolve_core.cuh``, ``lzx_core.cuh``, ``qtm_core.cuh``) with g++
 instead, for the tests: the same C++ the kernels run, on the CPU, the warp
 steps evaluated lane by lane (``stream_core.cuh``) and K2's block steps
-thread by thread; ``host_twin_copy()``, ``host_twin_vec()`` and
-``host_twin_gather()`` do the same for the redesigned probes P3, P1 and P5
-(``probes_copy_core.cuh``, ``probes_vec.cuh``,
-``probes_gather_core.cuh``). Each twin is keyed by the sha256 of its
+thread by thread; ``host_twin_copy()``, ``host_twin_vec()``,
+``host_twin_gather()`` and ``host_twin_gather2()`` do the same for the
+redesigned probes P3, P1, P5 and P6 (``probes_copy_core.cuh``,
+``probes_vec.cuh``, ``probes_gather_core.cuh``,
+``probes_gather2_core.cuh``). Each twin is keyed by the sha256 of its
 header and the headers it includes.
 """
 from __future__ import annotations
@@ -67,6 +68,8 @@ _SIGNATURES = {
     "msp_p5_symbol_smem": [_P, _P, _P, _P, _I, _I, _P],
     "msp_p6_masksum": [_P, _P, _P, _I, _I, _P],
     "msp_p6_symbol_step": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "msp_p6_masksum_vec": [_P, _P, _P, _I, _I, _P],
+    "msp_p6_symbol_smem": [_P, _P, _P, _P, _P, _I, _I, _P],
     # launch resources (csrc/launch_info.cuh): no stream, an int[5] out
     "msp_k1_launch_info": [_I, _P],
     "msp_k2_launch_info": [_I, _I, _P],
@@ -334,6 +337,24 @@ def host_twin_gather():
     handle.pg_len_find_host.restype = None
     handle.pg_symbol_host.argtypes = [_P, _P, _P, _P, _I, _I]
     handle.pg_symbol_host.restype = None
+    return handle
+
+
+def host_twin_gather2():
+    """P6's two redesigns, a block's threads one after another:
+    ``pg2_masksum_host(tab, idx, out, N, L)`` and ``pg2_symbol_host(meta,
+    limit, words, x, out, L, T)``, as ``msp_p6_masksum_vec`` and
+    ``msp_p6_symbol_smem`` (host pointers), and ``pg2_len_find_host(peek,
+    limit, n, length, row)``, the symbol step's early-exit length find
+    and the meta row it picks."""
+    handle = _twin("probes_gather2_core.cuh", "PROBES_GATHER2_CORE_HOST_TWIN",
+                   ["probes_gather_core.cuh", "stream_core.cuh"])
+    handle.pg2_masksum_host.argtypes = [_P, _P, _P, _I, _I]
+    handle.pg2_masksum_host.restype = None
+    handle.pg2_len_find_host.argtypes = [_P, _P, _I, _P, _P]
+    handle.pg2_len_find_host.restype = None
+    handle.pg2_symbol_host.argtypes = [_P, _P, _P, _P, _P, _I, _I]
+    handle.pg2_symbol_host.restype = None
     return handle
 
 

@@ -51,6 +51,8 @@ class Record:
     chain: int        # dependent steps within one lane (see Work)
     library_ms: Optional[float] = None  # one PyTorch call of the same
     #                                     function, where there is one
+    edge: bool = False  # a run on an edge input: held to the plain
+    #                     version, not the kernel's time at the tool's shape
 
 
 class Work:

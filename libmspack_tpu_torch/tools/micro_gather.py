@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import Record, Work, int32, launch, log2c, on, tensor, wrap32
-from .timing import header, time_cold_ms, time_ms
+from .timing import header, in_turns, time_cold_ms, time_ms
 
 N = 288            # rows of a per-lane table
 M32 = 0xFFFFFFFF
@@ -326,11 +326,8 @@ def compare_in_turns(td, id_, dev, rounds=3) -> None:
     warm = None
     for kind, timer, names in (("warm", time_ms, list(runs)),
                                ("L2 cold", time_cold_ms, list(runs)[:2])):
-        got = {name: [] for name in names}
-        for _ in range(rounds):
-            for name in names + names[::-1]:
-                got[name].append(timer(runs[name], dev)[1])
-        ms = {k: sum(v) / len(v) for k, v in got.items()}
+        _, ms = in_turns({name: runs[name] for name in names}, dev, rounds,
+                         timer=timer)
         warm = warm or ms
         print(f"  dg axis0 ({H},{L}) in turns, {kind}, mean of "
               f"{2 * rounds}: " + ", ".join(f"{k} {v:.4f} ms"

@@ -32,7 +32,8 @@ KERNELS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
            "p2_skel_kernel", "p3_copy_kernel", "p3_par_kernel",
            "p5_dyngather_kernel", "p5_masksum_kernel",
            "p5_symbol_kernel", "p5_cluster_kernel", "p5_symbol_smem_kernel",
-           "p6_masksum_kernel", "p6_symbol_kernel",
+           "p6_masksum_kernel", "p6_symbol_kernel", "p6_masksum_vec_kernel",
+           "p6_symbol_smem_kernel",
            "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",
            "minscalar", "smem_scalar", "u64shift", "dma_row")
 OPS = ("LDG", "LDS", "LDL", "LD", "STG", "STS", "STL", "ST", "ISETP", "SEL",
@@ -67,14 +68,16 @@ def _kernel(mangled: str):
 
 def summarise(text: str) -> dict:
     """``{kernel: Counter}`` for the kernels in a SASS listing: each
-    opcode in OPS (by its base name), ``insns`` and ``loops`` (branches to
-    an earlier address)."""
-    out, cur = {}, None
+    opcode in OPS (by its base name), ``insns``, ``loops`` (branches to
+    an earlier address) and, as ``"loop " + opcode``, the opcodes of OPS
+    that lie inside a loop (between a backward branch and its target)."""
+    out, cur, spans = {}, None, {}
     for line in text.splitlines():
         m = _FUNC.match(line)
         if m:
             name = _kernel(m.group(1))
             cur = out.setdefault(name, Counter()) if name else None
+            ops = spans.setdefault(name, ([], [])) if name else None
             continue
         m = _INSN.search(line)
         if cur is None or not m:
@@ -86,9 +89,15 @@ def summarise(text: str) -> dict:
         base = op.split(".")[0]
         if base in OPS:
             cur[base] += 1
+            ops[0].append((addr, base))
         t = re.search(r"0x([0-9a-f]+)", args)
         if base == "BRA" and t and int(t.group(1), 16) < addr:
             cur["loops"] += 1
+            ops[1].append((int(t.group(1), 16), addr))
+    for name, (opcodes, loops) in spans.items():
+        for addr, base in opcodes:
+            if any(lo <= addr <= hi for lo, hi in loops):
+                out[name]["loop " + base] += 1
     return out
 
 

@@ -88,3 +88,21 @@ def time_ms(fn, dev: torch.device, reps: int = 10, warmup: int = 1):
         b.record()
         b.synchronize()
         return _detach(out), a.elapsed_time(b) / reps
+
+
+def in_turns(runs: dict, dev: torch.device, rounds: int = 3, reps: int = 10,
+             timer=time_ms):
+    """``({name: its fn()'s result}, {name: mean ms per call})`` for the
+    callables of ``runs``, each timed by ``timer`` (``time_ms`` or
+    ``time_cold_ms``) in turns: ``rounds`` passes in order and back
+    (ABBA), so each name is timed ``2 rounds`` times. On the CPU one pass
+    in order."""
+    names = list(runs)
+    order = names + names[::-1] if dev.type == "cuda" else names
+    got = {name: [] for name in names}
+    outs = {}
+    for _ in range(rounds if dev.type == "cuda" else 1):
+        for name in order:
+            outs[name], ms = timer(runs[name], dev, reps)
+            got[name].append(ms)
+    return outs, {name: sum(v) / len(v) for name, v in got.items()}

@@ -569,6 +569,153 @@ def test_gather2_symbol_step_matches_jax(jax_tool):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.fixture(scope="module")
+def gather2_twin():
+    try:
+        return kernels.host_twin_gather2()
+    except RuntimeError as e:
+        pytest.skip(f"g++ build of the kernel core unavailable: {e}")
+
+
+def _placed(a, offset):
+    """A copy of ``a`` whose data lies ``offset`` bytes past a 16-byte
+    boundary."""
+    a = np.ascontiguousarray(a)
+    buf = np.zeros(a.size + 8, a.dtype)
+    k = (-buf.ctypes.data % 16 + offset) // a.itemsize
+    v = buf[k:k + a.size].reshape(a.shape)
+    v[...] = a
+    assert v.ctypes.data % 16 == offset
+    return v
+
+
+def _masksum_twin(twin, tab, idx, unaligned=False):
+    """The vec mask-sum's twin on numpy inputs (both 4 bytes off 16-byte
+    alignment where ``unaligned``, taking the lane-by-lane path)."""
+    off = 4 if unaligned else 0
+    tab, idx = _placed(tab.astype(np.int32), off), _placed(idx, off)
+    out = _placed(np.full(idx.size, -7, np.int32), 0)
+    twin.pg2_masksum_host(tab.ctypes.data, idx.ctypes.data, out.ctypes.data,
+                          *tab.shape)
+    return out
+
+
+def _symbol_twin(twin, meta, limit, stream, x, T, unaligned=False):
+    off = 4 if unaligned else 0
+    meta, limit, stream, x = (_placed(np.asarray(a).view(np.int32), off)
+                              for a in (meta, limit, stream, x))
+    out = np.zeros(x.size, np.int32)
+    twin.pg2_symbol_host(meta.ctypes.data, limit.ctypes.data,
+                         stream.ctypes.data, x.ctypes.data, out.ctypes.data,
+                         meta.shape[1], T)
+    return out
+
+
+def test_gather2_masksum_vec_twin_matches_jax(jax_tool, gather2_twin):
+    """The vec mask-sum's twin at (1, 36): nine whole quads of 16-byte
+    loads, idx at -1, 288 and 287 beside random rows, against the JAX
+    tool's Pallas kernel (interpret mode)."""
+    mg2, dt = jax_tool("micro_gather2")
+    mg2.bench_masksum(1, 36)
+    call = _closure(dt.steps[0])["call"]
+    rng = np.random.RandomState(4)
+    tab = rng.randint(-288, 288, (288, 36)).astype(np.int32)
+    idx = rng.randint(0, 288, (1, 36)).astype(np.int32)
+    idx[0, :3] = [-1, 288, 287]
+    want = np.asarray(call(jnp.asarray(tab), jnp.asarray(idx)))
+    got = _masksum_twin(gather2_twin, tab, idx.ravel())
+    np.testing.assert_array_equal(got, want.ravel())
+
+
+def test_gather2_symbol_smem_twin_matches_jax(jax_tool, gather2_twin):
+    """The staged symbol step's twin at (1, 64), one whole block, 8
+    steps, on test_gather2_symbol_step_matches_jax's draw, against the JAX
+    tool's Pallas kernel (interpret mode)."""
+    mg2, dt = jax_tool("micro_gather2")
+    mg2.bench_symbol_step(1, 64, T=8)
+    call = _closure(dt.steps[0])["call"]
+    meta, limit, stream = (t.numpy() for t in
+                           micro_gather.symbol_inputs(64, 5))
+    x = np.random.RandomState(6).randint(0, 100, (1, 64)).astype(np.int32)
+    want = np.asarray(call(jnp.asarray(meta), jnp.asarray(limit),
+                           jnp.asarray(stream.view(np.uint32)),
+                           jnp.asarray(x)))
+    got = _symbol_twin(gather2_twin, meta, limit, stream, x.ravel(), 8)
+    np.testing.assert_array_equal(got, want.ravel())
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_masksum_vec_twin_edges(gather2_twin, case):
+    """The vec mask-sum's twin on each of micro_gather2.masksum_edges()
+    (the card's edge runs: 100 and 8194 lanes, unaligned idx and tab, tab
+    near INT32_MAX; idx -1, 288, INT32_MIN, INT32_MAX) equals
+    masksum_plain."""
+    label, unaligned, (tab, idx) = micro_gather2.masksum_edges()[case]
+    want = micro_gather2.masksum_plain(tab, idx).numpy()
+    got = _masksum_twin(gather2_twin, tab.numpy(), idx.numpy(), unaligned)
+    np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_symbol_smem_p6_twin_edges(gather2_twin, case):
+    """The staged symbol step's twin on each of
+    micro_gather2.symbol_edges() (100, 8194 and unaligned 8192 lanes with
+    row-1 limits of 0, -5, 2^15, 2^20, 1 and 2, negative seeds and meta
+    over all of int32; all limits 0) equals symbol_step_plain."""
+    label, unaligned, ins = micro_gather2.symbol_edges()[case]
+    want = micro_gather2.symbol_step_plain(*ins, 64).numpy()
+    got = _symbol_twin(gather2_twin, *(t.numpy() for t in ins), 64,
+                       unaligned)
+    np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+@pytest.mark.parametrize("case", list(_LEN_CASES))
+def test_len_find_early_exit(gather2_twin, case):
+    """The staged symbol step's find (an exit at bl = 1, else the count
+    of compares) gives len_find_plain's length and the meta row (code + 7
+    length) mod 288 on the case's lane and on 64 random lanes beside it;
+    the lanes of length 1 took the early exit, the others the count, and
+    both occur."""
+    peek0, lims, want = _LEN_CASES[case]
+    rng = np.random.RandomState(7)
+    n = 65
+    peek = rng.randint(0, 1 << 15, n).astype(np.int32)
+    limit = np.zeros((16, n), np.int32)
+    for bl in range(1, 15):
+        limit[bl] = rng.randint(-2, (1 << bl) + 2, n)
+    peek[0], limit[1:15, 0] = peek0, lims
+    length, row = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    gather2_twin.pg2_len_find_host(peek.ctypes.data, limit.ctypes.data, n,
+                                   length.ctypes.data, row.ctypes.data)
+    wl, wc = micro_gather.len_find_plain(torch.from_numpy(peek).long(),
+                                         _t(limit))
+    assert int(length[0]) == want[0]
+    np.testing.assert_array_equal(length, wl.numpy())
+    np.testing.assert_array_equal(row, ((wc + 7 * wl) % 288).numpy())
+    assert (length == 1).any() and (length > 1).any()
+
+
+def test_gather2_designs_on_cpu():
+    """On the CPU both designs of each P6 probe run the plain version;
+    an unknown design, and a table without rows, raise."""
+    tab, idx = micro_gather2.masksum_edges()[0][2]
+    want = micro_gather2.masksum_plain(tab, idx)
+    for design in ("faithful", "vec"):
+        assert torch.equal(micro_gather2.masksum(tab, idx, "cpu", design),
+                           want)
+    ins = micro_gather2.symbol_edges()[0][2]
+    want = micro_gather2.symbol_step_plain(*ins, 8)
+    for design in ("faithful", "smem"):
+        assert torch.equal(micro_gather2.symbol_step(*ins, 8, "cpu", design),
+                           want)
+    with pytest.raises(ValueError, match="design"):
+        micro_gather2.masksum(tab, idx, "cpu", "smem")
+    with pytest.raises(ValueError, match="design"):
+        micro_gather2.symbol_step(*ins, 8, "cpu", "vec")
+    with pytest.raises(ValueError, match="rows"):
+        micro_gather2.masksum(tab[:0], idx, "cpu")
+
+
 # ---------------------------------------------------------------- port
 MODULES = [micro_vec, micro_skel, micro_copy, mosaic_probe, micro_gather,
            micro_gather2]
@@ -608,12 +755,14 @@ def test_probe_kernels_in_the_library():
         assert set(getattr(mod, "SOURCES", {}).values()) <= srcs
     assert {"probes_gather.cuh", "probes_copy_core.cuh",
             "probes_vec.cuh", "probes_gather_core.cuh",
-            "probes_gather_cluster.cu"} <= srcs
+            "probes_gather_cluster.cu", "probes_gather2_core.cuh",
+            "probes_gather2_smem.cu"} <= srcs
     for name in ("msp_p1_vec", "msp_p1_registers", "msp_p2_skel",
                  "msp_p3_copy", "msp_p3_copy_par", "msp_p4_probe",
                  "msp_p5_dyngather", "msp_p5_masksum", "msp_p5_symbol_step",
                  "msp_p5_dyngather_cluster", "msp_p5_symbol_smem",
-                 "msp_p6_masksum", "msp_p6_symbol_step"):
+                 "msp_p6_masksum", "msp_p6_symbol_step",
+                 "msp_p6_masksum_vec", "msp_p6_symbol_smem"):
         assert name in kernels._SIGNATURES
 
 
@@ -660,3 +809,13 @@ def test_sass_summary_reads_a_listing():
     assert (s["insns"], s["SEL"], s["loops"]) == (2, 1, 0)
     p = got["p1_sweep_kernel<true>"]
     assert (p["LDS"], p["LD"], p["LDG"]) == (1, 1, 0)
+
+
+def test_sass_summary_finds_loads_in_loops():
+    """The opcodes between a backward branch and its target count as in a
+    loop: p5_masksum_kernel's LDG at 0x10 and ISETP at 0x20 (the loop
+    0x10-0x30), not its STG at 0x40; a kernel without a loop has none."""
+    got = sass.summarise(_LISTING)
+    m = got["p5_masksum_kernel"]
+    assert (m["loop LDG"], m["loop ISETP"], m["loop STG"]) == (1, 1, 0)
+    assert not any(k.startswith("loop ") for k in got["p2_skel_kernel"])
