@@ -467,14 +467,21 @@ DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
 PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",
               "p1_vec_kernel<false>", "p1_vec_kernel<true>", "p1_reg_kernel",
               "p3_copy_kernel", "p3_par_kernel", "p5_dyngather_kernel",
-              "p5_cluster_kernel", "p5_symbol_kernel",
+              "p5_cluster_kernel", "p5_row_kernel<false>",
+              "p5_row_kernel<true>", "p5_masksum_kernel",
+              "p5_masksum_vec_kernel", "p5_symbol_kernel",
               "p5_symbol_smem_kernel", "p6_masksum_kernel",
               "p6_masksum_vec_kernel", "p6_symbol_kernel",
               "p6_symbol_smem_kernel")
 # what a redesign's SASS must show: (kernel, count key, least, most)
 SASS_CHECKS = (("p6_symbol_smem_kernel", "loop LDS", 1, None),
                ("p6_symbol_smem_kernel", "LDL", 0, 0),
-               ("p6_masksum_vec_kernel", "LDL", 0, 0))
+               ("p6_masksum_vec_kernel", "LDL", 0, 0),
+               ("p5_row_kernel<true>", "LDS", 1, None),
+               ("p5_row_kernel<true>", "LDL", 0, 0),
+               ("p5_row_kernel<false>", "LDS", 1, None),
+               ("p5_row_kernel<false>", "LDL", 0, 0),
+               ("p5_masksum_vec_kernel", "LDL", 0, 0))
 
 
 def build_report(t0, names):

@@ -1,9 +1,11 @@
 // P6 redesigned: the mask-sum as a direct vectorised gather, and the
 // chained symbol step with its word window in shared memory
-// (probes_gather2_smem.cu's kernels).
+// (probes_gather2_smem.cu's kernels); P5's mask-sum
+// (probes_gather_row.cu's p5_masksum_vec_kernel) runs the same core.
 //
 // The mask-sum, out[l] = (tab[idx[l], l] + idx[l]) mod N (the probe 0 where
-// idx[l] is not a row, the int32 sum wrapping, a floor modulo): a thread
+// idx[l] is not a row, the int32 sum wrapping, a floor modulo; P5's is the
+// probe alone: the template flag MOD): a thread
 // takes MASK_LANES = 4 adjacent lanes, one 16-byte load of idx, four
 // independent guarded loads of tab (no sweep over the rows) and one 16-byte
 // store; lanes past the last whole 4 and inputs that are not 16-byte
@@ -51,15 +53,23 @@ SC_FN int32_t floor_mod(int32_t s, int32_t N) {
   return r < 0 ? r + N : r;
 }
 
-// One lane: tab[i, l] where 0 <= i < N (else 0), plus i as int32, mod N.
+// One lane: tab[i, l] where 0 <= i < N (else 0); with MOD (P6) plus i as
+// int32, mod N, without it (P5) the probe alone.
+template <bool MOD>
+SC_FN int32_t masksum_value(int32_t a, int32_t i, int32_t N) {
+  return MOD ? floor_mod((int32_t)((uint32_t)a + (uint32_t)i), N) : a;
+}
+
+template <bool MOD>
 SC_FN int32_t masksum_lane(const int32_t* tab, int64_t L, int64_t l,
                            int32_t i, int32_t N) {
   int32_t a = (uint32_t)i < (uint32_t)N ? ldg(tab + i * L + l) : 0;
-  return floor_mod((int32_t)((uint32_t)a + (uint32_t)i), N);
+  return masksum_value<MOD>(a, i, N);
 }
 
 // Thread q's lanes [4 q, 4 q + 4) of L. vec: idx and out are 16-byte
 // aligned, so a whole quad is one load and one store.
+template <bool MOD>
 SC_FN void masksum_quad(const int32_t* tab, const int32_t* idx, int32_t* out,
                         int32_t N, int64_t L, int64_t q, bool vec) {
   int64_t l0 = q * MASK_LANES;
@@ -76,12 +86,12 @@ SC_FN void masksum_quad(const int32_t* tab, const int32_t* idx, int32_t* out,
 #pragma unroll
 #endif
     for (int u = 0; u < MASK_LANES; u++)
-      v[u] = floor_mod((int32_t)((uint32_t)a[u] + (uint32_t)v[u]), N);
+      v[u] = masksum_value<MOD>(a[u], v[u], N);
     pg::store16(out + l0, v);
     return;
   }
   for (int64_t l = l0; l < L && l < l0 + MASK_LANES; l++)
-    out[l] = masksum_lane(tab, L, l, idx[l], N);
+    out[l] = masksum_lane<MOD>(tab, L, l, idx[l], N);
 }
 
 SC_FN uint32_t rotr(uint32_t x, uint32_t n) {
@@ -129,12 +139,24 @@ SC_FN int32_t run(const uint32_t* s_words, const int32_t* meta, int64_t L,
 #ifdef PROBES_GATHER2_CORE_HOST_TWIN
 #include <vector>
 
-// msp_p6_masksum_vec's function on host pointers: tab (N, L); idx, out (L,).
-extern "C" void pg2_masksum_host(const int32_t* tab, const int32_t* idx,
-                                 int32_t* out, int N, int L) {
+// msp_p6_masksum_vec's (MOD) or msp_p5_masksum_vec's function on host
+// pointers: tab (N, L); idx, out (L,).
+template <bool MOD>
+static void masksum_host(const int32_t* tab, const int32_t* idx,
+                         int32_t* out, int N, int L) {
   bool vec = pg::aligned16(idx) && pg::aligned16(out);
   for (int64_t q = 0; q * pg2::MASK_LANES < L; q++)
-    pg2::masksum_quad(tab, idx, out, N, L, q, vec);
+    pg2::masksum_quad<MOD>(tab, idx, out, N, L, q, vec);
+}
+
+extern "C" void pg2_masksum_host(const int32_t* tab, const int32_t* idx,
+                                 int32_t* out, int N, int L) {
+  masksum_host<true>(tab, idx, out, N, L);
+}
+
+extern "C" void pg2_masksum_p5_host(const int32_t* tab, const int32_t* idx,
+                                    int32_t* out, int N, int L) {
+  masksum_host<false>(tab, idx, out, N, L);
 }
 
 // The early-exit length find on n lanes: peek (n,), limit (16, n).

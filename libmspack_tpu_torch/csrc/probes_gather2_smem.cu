@@ -34,7 +34,7 @@ __global__ void __launch_bounds__(pg2::MASK_THREADS)
                           int32_t* __restrict__ out, int N, int L) {
   int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   bool vec = pg::aligned16(idx) && pg::aligned16(out);
-  pg2::masksum_quad(tab, idx, out, N, L, q, vec);
+  pg2::masksum_quad<true>(tab, idx, out, N, L, q, vec);
 }
 
 // One block of pg::LANES lanes, a thread a lane.

@@ -1,6 +1,7 @@
 // P5 redesigned: the axis-0 gather with its table in a thread-block
 // cluster's distributed shared memory, and the mock symbol step run from
-// shared memory (probes_gather_cluster.cu's kernels).
+// shared memory (probes_gather_cluster.cu's kernels); the axis-1 gather
+// from a row staged in shared memory (probes_gather_row.cu).
 //
 // The gather, out[h, l] = t[clamp(idx[h, l], 0, H - 1), l] on int32 (H, L)
 // (probes_micro_gather.cu's p5_dyngather_kernel gives a thread to each
@@ -15,6 +16,14 @@
 // of out a thread and step: table row k lies in rank k / R at row k mod R
 // (place), read through the cluster's shared window. Every byte of t, idx
 // and out crosses device memory once.
+//
+// The row gather, out[h, l] = t[h, clamp(idx[h, l], 0, L - 1)] on int32
+// (H, L): element (h, l) reads only row h of t. A block takes one row (h
+// from blockIdx, so no division by L; 1024 / L rows a block ran no faster
+// at L = 128: PERF.md), copies it into its shared memory with cp.async (16
+// bytes a copy), and loads each thread's first four indices while the
+// copy flies; after the wait a thread's quad is four shared-memory loads
+// and one 16-byte store. Rows wider than ROW_MAX are refused.
 //
 // The symbol step, 256 steps of a mock DEFLATE symbol per lane (see
 // probes_micro_gather.cu): a block of LANES lanes first copies its lanes'
@@ -234,6 +243,74 @@ SC_FN void gather_rows(const int32_t* idx, int32_t* out, int32_t H,
   }
 }
 
+// ---------------------------------------------------------------- row
+
+constexpr int ROW_MAX = 12288;     // widest row a block stages: 48 KiB,
+                                   // shared memory without an opt-in
+constexpr int ROW_THREADS = 256;   // threads of a block, at most
+
+// Threads of the block that takes a row: a quad of elements each, at
+// most ROW_THREADS.
+SC_FN int32_t row_threads(int32_t L) {
+  int32_t q = (L + 3) / 4;
+  return q < ROW_THREADS ? q : ROW_THREADS;
+}
+
+// Whether the row gather takes its 16-byte paths on (H, L) t, idx, out:
+// L % 4 == 0 and all three 16-byte aligned, so every row is.
+SC_FN bool row_vec(const int32_t* t, const int32_t* idx, const int32_t* out,
+                   int32_t L) {
+  return L % 4 == 0 && aligned16(t) && aligned16(idx) && aligned16(out);
+}
+
+// n int32 from src to dst (shared memory, 16-byte aligned): with vec
+// (src 16-byte aligned, n % 4 == 0) 16 bytes a copy (complete at
+// async_wait()), else an element at a time. Thread tid of nthreads.
+SC_FN void stage_flat(const int32_t* src, int64_t n, int32_t* dst, int tid,
+                      int nthreads, bool vec) {
+  if (vec) {
+    for (int64_t e = tid; e < n / 4; e += nthreads)
+      copy16_async(dst + 4 * e, src + 4 * e);
+    return;
+  }
+  for (int64_t e = tid; e < n; e += nthreads) dst[e] = src[e];
+}
+
+SC_FN int32_t clamp_col(int32_t k, int32_t L) {
+  return k < 0 ? 0 : (k >= L ? L - 1 : k);
+}
+
+// Thread x of bx across one row: out[l] = s[clamp(idx[l], 0, L - 1)],
+// s the row in shared memory, idx and out the row in device memory. vec
+// (row_vec): quads x, x + bx, ..., each one
+// 16-byte load of idx, four shared-memory loads and one 16-byte store, the
+// first quad's indices in `first` (loaded while the row's copy flew);
+// else elements x, x + bx, ...
+SC_FN void gather_row(const int32_t* s, const int32_t* idx, int32_t* out,
+                      int32_t L, int x, int bx, bool vec,
+                      const int32_t* first) {
+  if (!vec) {
+    for (int32_t l = x; l < L; l += bx) out[l] = s[clamp_col(idx[l], L)];
+    return;
+  }
+  for (int32_t q = x; 4 * q < L; q += bx) {
+    int32_t v[4];
+    if (q == x) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+      for (int u = 0; u < 4; u++) v[u] = first[u];
+    } else {
+      load16(v, idx + 4 * q);
+    }
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int u = 0; u < 4; u++) v[u] = s[clamp_col(v[u], L)];
+    store16(out + 4 * q, v);
+  }
+}
+
 // ---------------------------------------------------------------- symbol
 
 constexpr int META_ROWS = 288;
@@ -364,6 +441,26 @@ extern "C" int pg_dyngather_host(const int32_t* t, const int32_t* idx,
     for (int32_t r = 0; r < S; r++)
       pg::gather_rows(idx, out, H, L, tile, r, R, 0, 1,
                       pg::RankRows(smem.data(), per_rank));
+  }
+  return 0;
+}
+
+// msp_p5_dyngather_row's function on host pointers, a block (a row) after
+// another, its threads one after another; -1 where a row is wider than
+// pg::ROW_MAX.
+extern "C" int pg_dyngather_row_host(const int32_t* t, const int32_t* idx,
+                                     int32_t* out, int H, int L) {
+  if (H < 1 || L < 1 || L > pg::ROW_MAX) return -1;
+  std::vector<int32_t> smem((size_t)L);
+  int bx = pg::row_threads(L);
+  bool vec = pg::row_vec(t, idx, out, L);
+  for (int64_t at = 0; at < (int64_t)H * L; at += L) {
+    pg::stage_flat(t + at, L, smem.data(), 0, 1, vec);
+    for (int x = 0; x < bx; x++) {
+      int32_t first[4] = {0, 0, 0, 0};
+      if (vec && 4 * x < L) pg::load16(first, idx + at + 4 * x);
+      pg::gather_row(smem.data(), idx + at, out + at, L, x, bx, vec, first);
+    }
   }
   return 0;
 }

@@ -66,6 +66,8 @@ _SIGNATURES = {
     "msp_p5_symbol_step": [_P, _P, _P, _P, _I, _I, _P],
     "msp_p5_dyngather_cluster": [_P, _P, _P, _I, _I, _P, _P],
     "msp_p5_symbol_smem": [_P, _P, _P, _P, _I, _I, _P],
+    "msp_p5_dyngather_row": [_P, _P, _P, _I, _I, _P],
+    "msp_p5_masksum_vec": [_P, _P, _P, _I, _I, _P],
     "msp_p6_masksum": [_P, _P, _P, _I, _I, _P],
     "msp_p6_symbol_step": [_P, _P, _P, _P, _P, _I, _I, _P],
     "msp_p6_masksum_vec": [_P, _P, _P, _I, _I, _P],
@@ -319,20 +321,24 @@ def host_twin_vec():
 
 
 def host_twin_gather():
-    """P5's two redesigns, a cluster's blocks and a block's threads one
-    after another: ``pg_dyngather_host(t, idx, out, H, L, S)`` (-1 where a
-    cluster of S blocks cannot hold a tile), ``pg_cluster_size_host(H, L,
-    sms)`` (the S the kernel launches on ``sms`` SMs, 0 for none),
+    """P5's redesigns of the gathers and the symbol step, a cluster's
+    blocks and a block's threads one after another: ``pg_dyngather_host(t,
+    idx, out, H, L, S)`` (-1 where a cluster of S blocks cannot hold a
+    tile), ``pg_cluster_size_host(H, L, sms)`` (the S the kernel launches
+    on ``sms`` SMs, 0 for none), ``pg_dyngather_row_host(t, idx, out, H,
+    L)`` (-1 where a row is wider than a block stages),
     ``pg_len_find_host(peek, limit, n, length, code)`` and
     ``pg_symbol_host(meta, limit, words, out, L, T)``, as
-    ``msp_p5_dyngather_cluster`` and ``msp_p5_symbol_smem`` (host
-    pointers)."""
+    ``msp_p5_dyngather_cluster``, ``msp_p5_dyngather_row`` and
+    ``msp_p5_symbol_smem`` (host pointers)."""
     handle = _twin("probes_gather_core.cuh", "PROBES_GATHER_CORE_HOST_TWIN",
                    ["stream_core.cuh"])
     handle.pg_dyngather_host.argtypes = [_P, _P, _P, _I, _I, _I]
     handle.pg_dyngather_host.restype = ctypes.c_int
     handle.pg_cluster_size_host.argtypes = [_I, _I, _I]
     handle.pg_cluster_size_host.restype = ctypes.c_int
+    handle.pg_dyngather_row_host.argtypes = [_P, _P, _P, _I, _I]
+    handle.pg_dyngather_row_host.restype = ctypes.c_int
     handle.pg_len_find_host.argtypes = [_P, _P, _I, _P, _P]
     handle.pg_len_find_host.restype = None
     handle.pg_symbol_host.argtypes = [_P, _P, _P, _P, _I, _I]
@@ -341,9 +347,11 @@ def host_twin_gather():
 
 
 def host_twin_gather2():
-    """P6's two redesigns, a block's threads one after another:
-    ``pg2_masksum_host(tab, idx, out, N, L)`` and ``pg2_symbol_host(meta,
-    limit, words, x, out, L, T)``, as ``msp_p6_masksum_vec`` and
+    """P6's two redesigns and P5's mask-sum on the same core, a block's
+    threads one after another: ``pg2_masksum_host(tab, idx, out, N, L)``,
+    ``pg2_masksum_p5_host`` (the same arguments) and
+    ``pg2_symbol_host(meta, limit, words, x, out, L, T)``, as
+    ``msp_p6_masksum_vec``, ``msp_p5_masksum_vec`` and
     ``msp_p6_symbol_smem`` (host pointers), and ``pg2_len_find_host(peek,
     limit, n, length, row)``, the symbol step's early-exit length find
     and the meta row it picks."""
@@ -351,6 +359,8 @@ def host_twin_gather2():
                    ["probes_gather_core.cuh", "stream_core.cuh"])
     handle.pg2_masksum_host.argtypes = [_P, _P, _P, _I, _I]
     handle.pg2_masksum_host.restype = None
+    handle.pg2_masksum_p5_host.argtypes = [_P, _P, _P, _I, _I]
+    handle.pg2_masksum_p5_host.restype = None
     handle.pg2_len_find_host.argtypes = [_P, _P, _I, _P, _P]
     handle.pg2_len_find_host.restype = None
     handle.pg2_symbol_host.argtypes = [_P, _P, _P, _P, _P, _I, _I]

@@ -9,21 +9,31 @@ are ``(rows, L)``, lane l in column l. Beside each gather, PyTorch's own
 call (``torch.gather``, ``torch.take``) is timed as the library row, as the
 tool timed XLA's.
 
-Two of the kernels have a Hopper redesign beside the faithful port
-(``csrc/probes_gather_cluster.cu``, ``probes_gather_core.cuh``):
-``dyngather(..., design="cluster")`` holds each tile of 4 columns of the
-table in the shared memory of a thread-block cluster
+Each kernel has a Hopper redesign beside the faithful port:
+``dyngather(..., axis=0, design="cluster")`` holds each tile of 4 columns
+of the table in the shared memory of a thread-block cluster
 (``p5_dyngather_axis0_cluster``), and ``symbol_step(..., design="smem")``
 stages each block's tables in shared memory and finds the code length
-without a branch (``p5_symbol_step_smem``).
+without a branch (``p5_symbol_step_smem``; both
+``csrc/probes_gather_cluster.cu``); ``dyngather(..., axis=1,
+design="row")`` copies each row of the table into a block's shared memory
+while it loads the indices (``p5_dyngather_axis1_row``), and
+``masksum(..., design="vec")`` gives a thread four lanes on P6's
+vectorised core (``p5_masksum_vec``; both ``csrc/probes_gather_row.cu``).
+``probes_gather_core.cuh`` and ``probes_gather2_core.cuh`` hold their
+functions.
 
 Run on the card: ``python -m libmspack_tpu_torch.tools.micro_gather``.
-It times both designs at every shape the faithful kernels run, then each
-redesign on small edge shapes (a rank boundary that is no power of two,
-clamped indices, a tail tile, unaligned inputs, a part-full block), and
-at (32768, 128) both gathers in turns: warm, with the table out of L2,
-and with each element reading its own row, which prices a random read
-from L2 and through the cluster's shared window (``compare_in_turns``).
+It times the axis-0 designs at every shape the faithful kernel runs, the
+axis-1 gathers and the mask-sums in turns beside ``torch.gather`` and a
+``copy_`` of idx (one launch that moves the same bytes: the floor of a
+one-launch kernel this size), both symbol steps, then each redesign on
+edge inputs (a rank boundary that is no power of two, clamped indices, a
+tail tile, unaligned inputs, a part-full block, L % 4 != 0, the widest
+staged row), and at (32768, 128) both axis-0 gathers in turns: warm, with
+the table out of L2, and with each element reading its own row, which
+prices a random read from L2 and through the cluster's shared window
+(``compare_in_turns``).
 """
 from __future__ import annotations
 
@@ -34,14 +44,16 @@ import numpy as np
 import torch
 
 from . import Record, Work, int32, launch, log2c, on, tensor, wrap32
-from .timing import header, in_turns, time_cold_ms, time_ms
+from .timing import header, in_turns, print_turns, time_cold_ms, time_ms
 
 N = 288            # rows of a per-lane table
 M32 = 0xFFFFFFFF
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 GATHER_SHAPES = [(0, 8, 128), (0, 16, 128), (0, 32, 128), (0, 288, 128),
                  (0, 1024, 128), (0, 4096, 128), (0, 32768, 128),
-                 (0, 288, 1024), (0, 1024, 1024),
-                 (1, 8, 128), (1, 8, 1024), (1, 64, 128)]
+                 (0, 288, 1024), (0, 1024, 1024)]
+AXIS1_SHAPES = [(8, 128), (8, 1024), (64, 128)]
+ROW_MAX = 12288    # the widest row the row gather stages (48 KiB)
 MASKSUM_SHAPES = [(8, 128), (8, 1024)]
 SYMBOL_LANES = 8 * 1024
 SYMBOL_T = 256
@@ -57,9 +69,13 @@ REPLACES = {"p5_dyngather_axis0": "tools/micro_gather.py:67",
             "p5_masksum": "tools/micro_gather.py:132",
             "p5_symbol_step": "tools/micro_gather.py:206",
             "p5_dyngather_axis0_cluster": "tools/micro_gather.py:67",
-            "p5_symbol_step_smem": "tools/micro_gather.py:206"}
+            "p5_symbol_step_smem": "tools/micro_gather.py:206",
+            "p5_dyngather_axis1_row": "tools/micro_gather.py:82",
+            "p5_masksum_vec": "tools/micro_gather.py:132"}
 SOURCES = {"p5_dyngather_axis0_cluster": "probes_gather_cluster.cu",
-           "p5_symbol_step_smem": "probes_gather_cluster.cu"}
+           "p5_symbol_step_smem": "probes_gather_cluster.cu",
+           "p5_dyngather_axis1_row": "probes_gather_row.cu",
+           "p5_masksum_vec": "probes_gather_row.cu"}
 LAUNCHES = dict.fromkeys(REPLACES, 0)
 
 
@@ -70,14 +86,21 @@ def dyngather(t, i, axis, device="cuda", design="faithful",
     only) launches the cluster gather, whose C entry picks the blocks a
     cluster from H, L and the card's SMs and fails (RuntimeError) where 8
     blocks cannot hold a tile; ``info`` (a dict) receives that count as
-    ``info["cluster"]``."""
+    ``info["cluster"]``. ``design="row"`` (axis 1 only) launches the row
+    gather, which stages each row of t in a block's shared memory and
+    refuses (ValueError) rows wider than ROW_MAX."""
     t, i = int32(t, "t"), int32(i, "i", t.shape)
     if t.dim() != 2 or axis not in (0, 1):
         raise ValueError("t must be 2-D and axis 0 or 1")
-    if design not in ("faithful", "cluster") or \
-            (design == "cluster" and axis != 0):
-        raise ValueError("design is 'faithful', or 'cluster' on axis 0")
+    if design not in ("faithful", "cluster", "row") or \
+            (design == "cluster" and axis != 0) or \
+            (design == "row" and axis != 1):
+        raise ValueError("design is 'faithful', 'cluster' on axis 0 or "
+                         "'row' on axis 1")
     H, L = t.shape
+    if design == "row" and L > ROW_MAX:
+        raise ValueError(f"the row gather stages rows of at most {ROW_MAX} "
+                         f"elements, not {L}")
     dev, (t, i) = on(device, t, i)
     if dev.type == "cpu":
         return dyngather_plain(t, i, axis)
@@ -89,6 +112,9 @@ def dyngather(t, i, axis, device="cuda", design="faithful",
                out.data_ptr(), H, L, ctypes.addressof(S))
         if info is not None:
             info["cluster"] = S.value
+    elif design == "row":
+        launch(LAUNCHES, "p5_dyngather_axis1_row", "msp_p5_dyngather_row",
+               dev, t.data_ptr(), i.data_ptr(), out.data_ptr(), H, L)
     else:
         launch(LAUNCHES, f"p5_dyngather_axis{axis}", "msp_p5_dyngather",
                dev, t.data_ptr(), i.data_ptr(), out.data_ptr(), H, L, axis)
@@ -102,19 +128,27 @@ def dyngather_plain(t, i, axis):
     return t[torch.arange(H)[:, None], i.long().clamp(0, L - 1)]
 
 
-def masksum(tab, idx, device="cuda") -> torch.Tensor:
+def masksum(tab, idx, device="cuda", design="faithful") -> torch.Tensor:
     """``tab[idx[l], l]`` for each lane l of idx (any shape, L elements)
     from an int32 ``(rows, L)`` table, 0 where idx is not a row; the
-    kernel sweeps every row as the TPU did. Returns idx's shape."""
+    faithful kernel sweeps every row as the TPU did, ``design="vec"``
+    gives a thread four lanes and reads each lane's row directly. Returns
+    idx's shape."""
     tab, idx = int32(tab, "tab"), int32(idx, "idx")
     if tab.dim() != 2 or tab.shape[1] != idx.numel():
         raise ValueError("tab must be (rows, L) with L = idx.numel()")
+    if design not in ("faithful", "vec"):
+        raise ValueError("design is 'faithful' or 'vec'")
     dev, (tab, idx) = on(device, tab, idx)
     if dev.type == "cpu":
         return masksum_plain(tab, idx)
     out = torch.empty_like(idx)
-    launch(LAUNCHES, "p5_masksum", "msp_p5_masksum", dev, tab.data_ptr(),
-           idx.data_ptr(), out.data_ptr(), tab.shape[0], idx.numel())
+    ptrs = (tab.data_ptr(), idx.data_ptr(), out.data_ptr(), tab.shape[0],
+            idx.numel())
+    if design == "vec":
+        launch(LAUNCHES, "p5_masksum_vec", "msp_p5_masksum_vec", dev, *ptrs)
+    else:
+        launch(LAUNCHES, "p5_masksum", "msp_p5_masksum", dev, *ptrs)
     return out
 
 
@@ -232,10 +266,10 @@ def bench_library(dev):
 
 
 def bench_gather(dev) -> list[Record]:
-    """Each shape of GATHER_SHAPES through the faithful kernel and, on
-    axis 0, the cluster gather, beside ``torch.gather``; at COLD_SHAPE
-    both in turns (``compare_in_turns``); then the cluster gather's edge
-    shapes (``edge_gathers``)."""
+    """Each axis-0 shape of GATHER_SHAPES through the faithful kernel and
+    the cluster gather, beside ``torch.gather``; at COLD_SHAPE both in
+    turns (``compare_in_turns``); then the cluster gather's edge shapes
+    (``edge_gathers``)."""
     print("== dynamic gather kernel ==", flush=True)
     rng = np.random.RandomState(1)
     records = []
@@ -256,8 +290,6 @@ def bench_gather(dev) -> list[Record]:
             f"p5_dyngather_axis{axis}", f"({H},{L})", ms, out.cpu(),
             lambda t=t, i=i, a=axis: dyngather(t, i, a, "cpu"),
             nbytes=12 * H * L, chain=1, library_ms=lib_ms))
-        if axis != 0:
-            continue
         info = {}
         out, ms = time_ms(
             lambda: dyngather(td, id_, 0, dev, "cluster", info), dev)
@@ -340,8 +372,102 @@ def compare_in_turns(td, id_, dev, rounds=3) -> None:
               flush=True)
 
 
+def int32_draw(rng, lo, hi, shape) -> np.ndarray:
+    """int32 values drawn from [lo, hi), which may span all of int32."""
+    return rng.randint(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+
+def on_card(dev, inputs, unaligned):
+    """The inputs on dev; ``unaligned``: each a view one element into a
+    copy, so its data is 4 bytes off 16-byte alignment."""
+    out = [t.to(dev) for t in inputs]
+    if unaligned:
+        out = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+               for t in out]
+    return out
+
+
+def bench_axis1(dev) -> list[Record]:
+    """Each shape of AXIS1_SHAPES: the faithful and the row gather in
+    turns (``timing.in_turns``) beside ``torch.gather`` (the library row)
+    and ``out.copy_(i)``, the floor of one launch that reads and writes
+    idx's bytes, with each design's excess over that floor; then the row
+    gather on ``row_edges()``."""
+    print("== axis-1 gather, in turns ==", flush=True)
+    rng = np.random.RandomState(1)
+    records = []
+    for H, L in AXIS1_SHAPES:
+        t = tensor(rng.randint(0, 100, (H, L), dtype=np.int32))
+        i = tensor(rng.randint(0, L, (H, L), dtype=np.int32))
+        td, id_ = t.to(dev), i.to(dev)
+        il = id_.long()
+        floor_out = torch.empty_like(id_)
+        outs, ms = in_turns(
+            {"faithful": lambda: dyngather(td, id_, 1, dev),
+             "row": lambda: dyngather(td, id_, 1, dev, "row"),
+             "torch.gather": lambda: torch.gather(td, 1, il),
+             "copy_ floor": lambda: floor_out.copy_(id_)}, dev, reps=32)
+        print_turns(f"  dg axis1 ({H},{L})", ms, dev)
+        records += [Record(
+            name, f"({H},{L})", ms[d], outs[d].cpu(),
+            lambda t=t, i=i: dyngather(t, i, 1, "cpu"), nbytes=12 * H * L,
+            chain=1, library_ms=ms["torch.gather"])
+            for d, name in (("faithful", "p5_dyngather_axis1"),
+                            ("row", "p5_dyngather_axis1_row"))]
+    return records + edge_rows(dev)
+
+
+def row_edges():
+    """The row gather's edge inputs, ``(label, unaligned, (t, i))`` on the
+    CPU: 25 quads a row, a block no whole warp (21, 100), L % 4 != 0
+    (5, 130), rows narrower than a quad (7, 3), one row (1, 128), t and i
+    one element off 16-byte alignment (``unaligned``: made so on the
+    device), and the widest row a block stages (3, ROW_MAX); each with
+    indices -3, -1, L and L + 5 (clamped), 0 and L - 1 in its first
+    elements, the rest in [-3, L + 6), and t over all of int32."""
+    rng = np.random.RandomState(10)
+    cases = []
+    for H, L, unaligned in ((21, 100, False), (5, 130, False),
+                            (7, 3, False), (1, 128, False), (8, 128, True),
+                            (3, ROW_MAX, False)):
+        t = int32_draw(rng, INT32_MIN, INT32_MAX + 1, (H, L))
+        i = int32_draw(rng, -3, L + 6, (H, L))
+        i.flat[:6] = [-3, -1, L, L + 5, 0, L - 1]
+        label = f"({H},{L})" + (" unaligned" if unaligned else "")
+        cases.append((label, unaligned, (tensor(t), tensor(i))))
+    return cases
+
+
+def edge_records(dev, kernel, cases, fn, nbytes, chain) -> list[Record]:
+    """``fn(*inputs, device)`` on each ``(label, unaligned, inputs)`` of
+    ``cases`` (CPU tensors; ``unaligned``: made so on the device), timed
+    with 4 calls a graph, as edge runs of ``kernel`` held to ``fn`` on the
+    CPU inputs (the plain version); ``nbytes(*inputs)`` is a run's
+    bytes."""
+    records = []
+    for label, unaligned, ins in cases:
+        insd = on_card(dev, ins, unaligned)
+        out, ms = time_ms(lambda: fn(*insd, dev), dev, reps=4)
+        print(f"  {kernel}, {label}: {ms * 1e3:.3f} us", flush=True)
+        records.append(Record(kernel, label, ms, out.cpu(),
+                              lambda ins=ins: fn(*ins, "cpu"),
+                              nbytes=nbytes(*ins), chain=chain, edge=True))
+    return records
+
+
+def edge_rows(dev) -> list[Record]:
+    """The row gather on each of ``row_edges()``."""
+    return edge_records(dev, "p5_dyngather_axis1_row", row_edges(),
+                        lambda t, i, d: dyngather(t, i, 1, d, "row"),
+                        lambda t, i: 12 * t.numel(), 1)
+
+
 def bench_masksum(dev) -> list[Record]:
-    print(f"== mask-sum probe ({N}-entry per-lane tables) ==", flush=True)
+    """Each shape of MASKSUM_SHAPES: the faithful and the vec mask-sum in
+    turns beside ``torch.gather`` and ``out.copy_(idx)`` (as
+    ``bench_axis1``); then the vec mask-sum on ``masksum_edges()``."""
+    print(f"== mask-sum probe ({N}-entry per-lane tables), in turns ==",
+          flush=True)
     rng = np.random.RandomState(2)
     records = []
     for SL, LN in MASKSUM_SHAPES:
@@ -349,17 +475,55 @@ def bench_masksum(dev) -> list[Record]:
         tab = tensor(rng.randint(0, N, (N, L), dtype=np.int32))
         idx = tensor(rng.randint(0, N, (SL, LN), dtype=np.int32))
         tabd, idxd = tab.to(dev), idx.to(dev)
-        out, ms = time_ms(lambda: masksum(tabd, idxd, dev), dev)
         il = idxd.long().view(1, L)
-        _, lib_ms = time_ms(lambda: torch.gather(tabd, 0, il), dev)
-        print(f"  mask-sum {N} x {L} lanes: {ms:.4f} ms  "
-              f"{L / ms / 1e3:.1f} M probe/s  (torch.gather {lib_ms:.4f} ms)",
-              flush=True)
-        records.append(Record(
-            "p5_masksum", f"{N} x {L}", ms, out.cpu(),
+        floor_out = torch.empty_like(idxd)
+        outs, ms = in_turns(
+            {"faithful": lambda: masksum(tabd, idxd, dev),
+             "vec": lambda: masksum(tabd, idxd, dev, "vec"),
+             "torch.gather": lambda: torch.gather(tabd, 0, il),
+             "copy_ floor": lambda: floor_out.copy_(idxd)}, dev, reps=32)
+        print_turns(f"  mask-sum {N} x {L} lanes", ms, dev)
+        records += [Record(
+            name, f"{N} x {L}", ms[d], outs[d].cpu(),
             lambda tab=tab, idx=idx: masksum(tab, idx, "cpu"),
-            nbytes=12 * L, chain=1, library_ms=lib_ms))
-    return records
+            nbytes=12 * L, chain=1, library_ms=ms["torch.gather"])
+            for d, name in (("faithful", "p5_masksum"),
+                            ("vec", "p5_masksum_vec"))]
+    return records + edge_masksums(dev)
+
+
+def masksum_edges():
+    """The vec mask-sum's edge inputs, ``(label, unaligned, (tab, idx))``
+    on the CPU: a part-full block (100 lanes), L % 4 != 0 (8194), idx and
+    tab one element off 16-byte alignment (``unaligned``: made so on the
+    device), and the tool's 1024 lanes; each with idx -1, N, INT32_MIN,
+    INT32_MAX, 0 and N - 1 in its first lanes, the rest in [-3, N + 3),
+    and tab over all of int32."""
+    rng = np.random.RandomState(11)
+    specials = [-1, N, INT32_MIN, INT32_MAX, 0, N - 1]
+    cases = []
+    for label, L, unaligned in (("100 lanes", 100, False),
+                                ("8194 lanes", 8194, False),
+                                ("8192 lanes, unaligned", 8192, True),
+                                ("1024 lanes", 1024, False)):
+        tab = int32_draw(rng, INT32_MIN, INT32_MAX + 1, (N, L))
+        idx = int32_draw(rng, -3, N + 3, L)
+        idx[:len(specials)] = specials
+        cases.append((label, unaligned, (tensor(tab), tensor(idx))))
+    return cases
+
+
+def masksum_bytes(tab, idx) -> int:
+    """idx read, the rows it names read, out written: 4 bytes each."""
+    i = idx.flatten().long()
+    return 4 * (2 * i.numel() + int(((i >= 0) & (i < tab.shape[0])).sum()))
+
+
+def edge_masksums(dev) -> list[Record]:
+    """The vec mask-sum on each of ``masksum_edges()``."""
+    return edge_records(dev, "p5_masksum_vec", masksum_edges(),
+                        lambda tab, idx, d: masksum(tab, idx, d, "vec"),
+                        masksum_bytes, 1)
 
 
 def symbol_inputs(L, seed):
@@ -404,6 +568,7 @@ def main(argv=(), device="cuda") -> list[Record]:
     print(header(dev), flush=True)
     bench_library(dev)
     records = bench_gather(dev)
+    records += bench_axis1(dev)
     records += bench_masksum(dev)
     records += bench_symbol_step(dev)
     return records

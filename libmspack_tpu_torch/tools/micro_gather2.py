@@ -31,12 +31,14 @@ import numpy as np
 import torch
 
 from . import Record, Work, int32, launch, on, tensor, wrap32
-from .micro_gather import (M32, check_symbol_inputs, len_find_plain,
-                           masksum_plain as _probe_plain, symbol_inputs)
-from .timing import header, in_turns, time_ms
+from .micro_gather import (INT32_MAX, INT32_MIN, M32, check_symbol_inputs,
+                           edge_records, int32_draw as _int32,
+                           len_find_plain, masksum_bytes,
+                           masksum_plain as _probe_plain,
+                           on_card as _on_card, symbol_inputs)
+from .timing import header, in_turns, print_turns, time_ms
 
 N = 288
-INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 SOURCE = "probes_micro_gather2.cu"
 REPLACES = {"p6_masksum": "tools/micro_gather2.py:25",
@@ -128,10 +130,6 @@ def symbol_step_plain(meta, limit, stream, x, steps=64, work: Work = None):
     return wrap32(acc + bitbuf).view(x.shape)
 
 
-def _int32(rng, lo, hi, shape):
-    return rng.randint(lo, hi, shape, dtype=np.int64).astype(np.int32)
-
-
 def masksum_edges():
     """The vec mask-sum's edge inputs, ``(label, unaligned, (tab, idx))``
     on the CPU: a part-full block (100 lanes), L % 4 != 0 (8194), idx and
@@ -185,22 +183,6 @@ def symbol_edges():
     return cases
 
 
-def _on_card(dev, inputs, unaligned):
-    """The inputs on dev; ``unaligned``: each a view one element into a
-    copy, so its data is 4 bytes off 16-byte alignment."""
-    out = [t.to(dev) for t in inputs]
-    if unaligned:
-        out = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
-               for t in out]
-    return out
-
-
-def masksum_bytes(tab, idx) -> int:
-    """idx read, the rows it names read, out written: 4 bytes each."""
-    i = idx.flatten().long()
-    return 4 * (2 * i.numel() + int(((i >= 0) & (i < tab.shape[0])).sum()))
-
-
 def bench_masksum(dev, SL, LN) -> list[Record]:
     """Both mask-sums at (SL, LN) lanes in turns beside ``torch.gather`` +
     ``remainder`` (the library row) and ``out.copy_(idx)``, the floor of
@@ -219,14 +201,9 @@ def bench_masksum(dev, SL, LN) -> list[Record]:
                 torch.gather(tabd, 0, il).view(SL, LN) + idxd, N),
             "copy_ floor": lambda: floor_out.copy_(idxd)}
     outs, ms = in_turns(runs, dev, reps=32)
-    floor = ms["copy_ floor"]
-    print(f"mask-sum {N} x {L} lanes, mean of {6 if dev.type == 'cuda' else 1}"
-          " in turns: " + ", ".join(f"{k} {v * 1e3:.2f} us"
-                                    for k, v in ms.items()), flush=True)
-    print(f"mask-sum {N} x {L} lanes over the copy_ floor: faithful "
-          f"{(ms['faithful'] - floor) * 1e3:.2f} us, vec "
-          f"{(ms['vec'] - floor) * 1e3:.2f} us; vec {L / ms['vec'] / 1e3:.1f}"
-          " M probe/s", flush=True)
+    print_turns(f"mask-sum {N} x {L} lanes", ms, dev)
+    print(f"mask-sum {N} x {L} lanes: vec {L / ms['vec'] / 1e3:.1f} M "
+          "probe/s", flush=True)
     return [Record(f"p6_masksum{'' if d == 'faithful' else '_vec'}",
                    f"{N} x {L}", ms[d], outs[d].cpu(),
                    lambda d=d: masksum(tab, idx, "cpu", d),
@@ -270,17 +247,9 @@ def bench_symbol_step(dev, SL, LN, T=64) -> list[Record]:
 
 def edge_masksums(dev) -> list[Record]:
     """The vec mask-sum on each of ``masksum_edges()``."""
-    records = []
-    for label, unaligned, (tab, idx) in masksum_edges():
-        tabd, idxd = _on_card(dev, (tab, idx), unaligned)
-        out, ms = time_ms(lambda: masksum(tabd, idxd, dev, "vec"), dev,
-                          reps=4)
-        print(f"mask-sum vec, {label}: {ms * 1e3:.2f} us", flush=True)
-        records.append(Record(
-            "p6_masksum_vec", label, ms, out.cpu(),
-            lambda tab=tab, idx=idx: masksum(tab, idx, "cpu"),
-            nbytes=masksum_bytes(tab, idx), chain=2, edge=True))
-    return records
+    return edge_records(dev, "p6_masksum_vec", masksum_edges(),
+                        lambda tab, idx, d: masksum(tab, idx, d, "vec"),
+                        masksum_bytes, 2)
 
 
 def edge_symbol_steps(dev, T=64) -> list[Record]:

@@ -11,7 +11,10 @@ as in Pallas interpret mode. As written, the mock decode never finds a key
 (sym is always 0), so the outputs do not depend on the stream.
 
 Run on the card: ``python -m libmspack_tpu_torch.tools.micro_skel [L]
-[steps]``
+[steps]``. The kernel is timed in turns (``timing.in_turns``) beside
+``out.copy_(seed)``, one launch that reads and writes the seed's L int32:
+the floor of a one-launch kernel this size, and beside ``torch.zeros`` of
+the token rows, the fill that each call launches before its kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from . import Record, Work, int32, launch, log2c, on, tensor, wrap32
-from .timing import header, time_ms
+from .timing import header, in_turns
 
 WIN = 64          # words per lane window
 G = 16            # lanes re-windowed per step
@@ -123,11 +126,21 @@ def main(argv=(), device="cuda") -> list[Record]:
     stream = tensor(rng.randint(0, 1 << 30, (L, W)).astype(np.uint32))
     seed = torch.zeros((8, L // 8), dtype=torch.int32)
     sd, seedd = stream.to(dev), seed.to(dev)
-    (out, cnt), ms = time_ms(lambda: skel(sd, seedd, T, dev), dev)
+    floor_out = torch.empty_like(seedd)
+    outs, times = in_turns(
+        {"skel": lambda: skel(sd, seedd, T, dev),
+         "copy_ floor": lambda: floor_out.copy_(seedd),
+         "zero fill": lambda: torch.zeros((NOUT, L), dtype=torch.int32,
+                                          device=dev)}, dev, reps=32)
+    (out, cnt), ms = outs["skel"], times["skel"]
     per_step = ms / 1e3 / T
     print(f"L={L}: {per_step * 1e6:.2f} us/step  "
           f"{L / per_step / 1e6:.1f} M lane-steps/s  "
           f"(~{L * 2.2 / per_step / 1e6:.0f} MB/s at 2.2 B/step)", flush=True)
+    print(f"L={L}, T={T}: {ms * 1e3:.3f} us/call, copy_ floor "
+          f"{times['copy_ floor'] * 1e3:.3f} us, "
+          f"{(ms - times['copy_ floor']) * 1e3:.3f} us over it; the token "
+          f"rows' zero fill {times['zero fill'] * 1e3:.3f} us", flush=True)
 
     def plain():
         o, c = skel(stream, seed, T, "cpu")

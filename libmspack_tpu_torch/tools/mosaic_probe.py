@@ -12,7 +12,11 @@ never ran as written run here as the functions their bodies define:
 neither).
 
 Run on the card: ``python -m libmspack_tpu_torch.tools.mosaic_probe
-[name ...]``
+[name ...]``. The probes are timed in turns (``timing.in_turns``) beside
+``out.copy_(x)``, one launch that reads and writes x's bytes: the floor of
+a one-launch kernel this size, and beside ``torch.zeros`` of the output,
+the fill that each probe's call launches before its kernel; each probe's
+excess over the floor is printed.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from . import Record, int32, launch, on, tensor, wrap32
-from .timing import header, time_ms
+from .timing import header, in_turns
 
 SL, LN = 8, 128
 M32 = 0xFFFFFFFF
@@ -136,15 +140,27 @@ def main(argv=(), device="cuda") -> list[Record]:
     dev, _ = on(device)
     print(header(dev), flush=True)
     x, aux = inputs()
+    xd = x.to(dev)
+    auxd = {k: v.to(dev) for k, v in aux.items()}
+    floor_out = torch.empty_like(xd)
+    runs = {name: lambda n=name: probe(n, xd, auxd.get(n), dev)
+            for name in names}
+    runs["copy_ floor"] = lambda: floor_out.copy_(xd)
+    runs["zero fill"] = lambda: torch.zeros((SL, LN), dtype=torch.int32,
+                                            device=dev)
+    outs, times = in_turns(runs, dev, reps=32)
+    floor = times["copy_ floor"]
+    print(f"copy_ floor (8, 128) int32: {floor * 1e3:.3f} us/call; the "
+          f"output's zero fill {times['zero fill'] * 1e3:.3f} us/call",
+          flush=True)
     records = []
     for name in names:
-        a = aux.get(name)
-        xd, ad = x.to(dev), None if a is None else a.to(dev)
-        out, ms = time_ms(lambda: probe(name, xd, ad, dev), dev, reps=20)
-        out = out.cpu()
+        a, ms = aux.get(name), times[name]
+        out = outs[name].cpu()
         ok = torch.equal(out, probe(name, x, a, "cpu"))
         print(f"{name}: {'OK' if ok else 'FAIL: differs from plain'}  "
-              f"({ms * 1e3:.2f} us/call)", flush=True)
+              f"({ms * 1e3:.3f} us/call, {(ms - floor) * 1e3:.3f} us over "
+              "the copy_ floor)", flush=True)
         nbytes = 8 * SL * LN + (16 * LN * 4 if name == "dma_row" else 0) + \
             (16 if name == "smem_scalar" else 0)
         records.append(Record(

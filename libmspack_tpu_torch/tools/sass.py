@@ -32,6 +32,7 @@ KERNELS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
            "p2_skel_kernel", "p3_copy_kernel", "p3_par_kernel",
            "p5_dyngather_kernel", "p5_masksum_kernel",
            "p5_symbol_kernel", "p5_cluster_kernel", "p5_symbol_smem_kernel",
+           "p5_row_kernel", "p5_masksum_vec_kernel",
            "p6_masksum_kernel", "p6_symbol_kernel", "p6_masksum_vec_kernel",
            "p6_symbol_smem_kernel",
            "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",

@@ -106,3 +106,16 @@ def in_turns(runs: dict, dev: torch.device, rounds: int = 3, reps: int = 10,
             outs[name], ms = timer(runs[name], dev, reps)
             got[name].append(ms)
     return outs, {name: sum(v) / len(v) for name, v in got.items()}
+
+
+def print_turns(label: str, ms: dict, dev: torch.device) -> None:
+    """Two lines of an ``in_turns`` timing (its default rounds) that has a
+    ``"copy_ floor"`` run: each run's mean, then each other run's excess
+    over the floor."""
+    floor = ms["copy_ floor"]
+    n = 6 if dev.type == "cuda" else 1
+    print(f"{label}, mean of {n} in turns: " + ", ".join(
+        f"{k} {v * 1e3:.3f} us" for k, v in ms.items()), flush=True)
+    print(f"{label} over the copy_ floor: " + ", ".join(
+        f"{k} {(v - floor) * 1e3:.3f} us" for k, v in ms.items()
+        if k != "copy_ floor"), flush=True)

@@ -17,6 +17,7 @@ compared output, or compare them as 0 (micro_copy's frame), and the cases
 say where.
 """
 import functools
+import hashlib
 import importlib.util
 import os
 import sys
@@ -589,14 +590,16 @@ def _placed(a, offset):
     return v
 
 
-def _masksum_twin(twin, tab, idx, unaligned=False):
+def _masksum_twin(twin, tab, idx, unaligned=False,
+                  entry="pg2_masksum_host"):
     """The vec mask-sum's twin on numpy inputs (both 4 bytes off 16-byte
-    alignment where ``unaligned``, taking the lane-by-lane path)."""
+    alignment where ``unaligned``, taking the lane-by-lane path); P6's,
+    or P5's with ``entry="pg2_masksum_p5_host"``."""
     off = 4 if unaligned else 0
     tab, idx = _placed(tab.astype(np.int32), off), _placed(idx, off)
     out = _placed(np.full(idx.size, -7, np.int32), 0)
-    twin.pg2_masksum_host(tab.ctypes.data, idx.ctypes.data, out.ctypes.data,
-                          *tab.shape)
+    getattr(twin, entry)(tab.ctypes.data, idx.ctypes.data, out.ctypes.data,
+                         *tab.shape)
     return out
 
 
@@ -716,6 +719,135 @@ def test_gather2_designs_on_cpu():
         micro_gather2.masksum(tab[:0], idx, "cpu")
 
 
+# ------------------------------------- P5 axis 1 and mask-sum redesigns
+def _row_twin(twin, t, i, t_off=0, i_off=0):
+    """The row gather's twin on numpy inputs, t and i ``t_off`` and
+    ``i_off`` bytes past 16-byte alignment."""
+    t, i = _placed(t, t_off), _placed(i, i_off)
+    out = _placed(np.full(t.shape, -7, np.int32), 0)
+    rc = twin.pg_dyngather_row_host(t.ctypes.data, i.ctypes.data,
+                                    out.ctypes.data, *t.shape)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(micro_gather.row_edges())))
+def test_dyngather_row_twin_edges(gather_twin, case):
+    """The row gather's twin on each of micro_gather.row_edges() (the
+    card's edge runs: L = 100, 130 and 3, one row, unaligned t and idx,
+    the widest staged row; indices -3, -1, L and L + 5; t over all of
+    int32) equals dyngather_plain."""
+    label, unaligned, (t, i) = micro_gather.row_edges()[case]
+    off = 4 if unaligned else 0
+    got = _row_twin(gather_twin, t.numpy(), i.numpy(), off, off)
+    want = micro_gather.dyngather_plain(t, i, 1).numpy()
+    np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+@pytest.mark.parametrize("t_off,i_off", [(4, 0), (0, 4), (0, 0)])
+def test_dyngather_row_twin_alignment(gather_twin, t_off, i_off):
+    """Only t, or only idx, 4 bytes off 16-byte alignment, which sends the
+    whole kernel down its element paths (pg::row_vec), and both aligned,
+    at (37, 1032): each thread's first quad loaded before the copy's wait,
+    its second (quads 256-257) after it."""
+    rng = np.random.RandomState(12)
+    t = rng.randint(-1 << 31, 1 << 31, (37, 1032), dtype=np.int64) \
+        .astype(np.int32)
+    i = rng.randint(-3, 1038, (37, 1032)).astype(np.int32)
+    got = _row_twin(gather_twin, t, i, t_off, i_off)
+    want = micro_gather.dyngather_plain(_t(t), _t(i), 1).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dyngather_row_twin_matches_jax(jax_tool, gather_twin):
+    """The row gather's twin at the tool's (8, 128) on
+    test_dyngather_matches_jax's axis-1 inputs, against the JAX tool's
+    Pallas kernel (interpret mode)."""
+    mg, _ = jax_tool("micro_gather")
+    rng = np.random.RandomState(1)
+    t = rng.randint(0, 100, (8, 128)).astype(np.int32)
+    i = rng.randint(0, 128, (8, 128)).astype(np.int32)
+    want = np.asarray(mg.pallas_dyngather_axis1(8, 128)(jnp.asarray(t),
+                                                        jnp.asarray(i)))
+    np.testing.assert_array_equal(_row_twin(gather_twin, t, i), want)
+
+
+def test_dyngather_row_refusals(gather_twin):
+    """A row wider than ROW_MAX (48 KiB) is refused: the wrapper raises
+    ValueError on any device, the twin returns -1; the widest row runs;
+    the row design on axis 0 raises."""
+    wide = micro_gather.ROW_MAX + 1
+    z = torch.zeros((1, wide), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"at most {micro_gather.ROW_MAX}"):
+        micro_gather.dyngather(z, z, 1, "cpu", "row")
+    assert gather_twin.pg_dyngather_row_host(None, None, None, 1, wide) == -1
+    z = z[:, 1:]
+    assert torch.equal(micro_gather.dyngather(z, z, 1, "cpu", "row"), z)
+    with pytest.raises(ValueError, match="axis 1"):
+        micro_gather.dyngather(z, z, 0, "cpu", "row")
+
+
+def test_masksum_p5_vec_twin_matches_jax(jax_tool, gather2_twin):
+    """P5's vec mask-sum twin at the tool's (8, 128) lanes on
+    test_masksum_matches_jax's inputs (idx in [-3, 300): lanes outside
+    the table give 0), against the JAX tool's sweep (interpret mode)."""
+    mg, _ = jax_tool("micro_gather")
+    rng = np.random.RandomState(2)
+    tab = rng.randint(0, 288, (288, SL * LN)).astype(np.int32)
+    idx = rng.randint(-3, 300, (SL, LN)).astype(np.int32)
+    got = _first_timed(mg, lambda *a: (jnp.asarray(tab), jnp.asarray(idx)))
+    mg.bench_pallas_masksum()
+    out = _masksum_twin(gather2_twin, tab, idx.ravel(),
+                        entry="pg2_masksum_p5_host")
+    np.testing.assert_array_equal(out, got[0].ravel())
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_masksum_p5_vec_twin_edges(gather2_twin, case):
+    """P5's vec mask-sum twin on each of micro_gather.masksum_edges() (the
+    card's edge runs: 100 and 8194 lanes, unaligned idx and tab; idx -1,
+    288, INT32_MIN, INT32_MAX; tab over all of int32) equals
+    masksum_plain."""
+    label, unaligned, (tab, idx) = micro_gather.masksum_edges()[case]
+    want = micro_gather.masksum_plain(tab, idx).numpy()
+    got = _masksum_twin(gather2_twin, tab.numpy(), idx.numpy(), unaligned,
+                        "pg2_masksum_p5_host")
+    np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+def test_masksum_p6_vec_bytes_unchanged(gather2_twin):
+    """P6's vec twin gives, on each of micro_gather2.masksum_edges() at
+    both alignments, the bytes it gave before its core was shared with
+    P5's mask-sum: the sha256 of the outputs in order, taken from the
+    core before the change."""
+    h = hashlib.sha256()
+    for _, _, (tab, idx) in micro_gather2.masksum_edges():
+        for unaligned in (False, True):
+            h.update(_masksum_twin(gather2_twin, tab.numpy(), idx.numpy(),
+                                   unaligned).tobytes())
+    assert h.hexdigest() == \
+        "6fbea6930f9a27d596d19145129f777e797351bb19e163ecac2df4c06c4c15cc"
+
+
+def test_gather_designs_on_cpu():
+    """On the CPU the row gather and the vec mask-sum run the plain
+    version; an unknown design raises."""
+    _, _, (t, i) = micro_gather.row_edges()[0]
+    want = micro_gather.dyngather_plain(t, i, 1)
+    for design in ("faithful", "row"):
+        assert torch.equal(micro_gather.dyngather(t, i, 1, "cpu", design),
+                           want)
+    _, _, (tab, idx) = micro_gather.masksum_edges()[0]
+    want = micro_gather.masksum_plain(tab, idx)
+    for design in ("faithful", "vec"):
+        assert torch.equal(micro_gather.masksum(tab, idx, "cpu", design),
+                           want)
+    with pytest.raises(ValueError, match="design"):
+        micro_gather.masksum(tab, idx, "cpu", "row")
+    with pytest.raises(ValueError, match="design"):
+        micro_gather.dyngather(t, i, 1, "cpu", "vec")
+
+
 # ---------------------------------------------------------------- port
 MODULES = [micro_vec, micro_skel, micro_copy, mosaic_probe, micro_gather,
            micro_gather2]
@@ -756,13 +888,14 @@ def test_probe_kernels_in_the_library():
     assert {"probes_gather.cuh", "probes_copy_core.cuh",
             "probes_vec.cuh", "probes_gather_core.cuh",
             "probes_gather_cluster.cu", "probes_gather2_core.cuh",
-            "probes_gather2_smem.cu"} <= srcs
+            "probes_gather2_smem.cu", "probes_gather_row.cu"} <= srcs
     for name in ("msp_p1_vec", "msp_p1_registers", "msp_p2_skel",
                  "msp_p3_copy", "msp_p3_copy_par", "msp_p4_probe",
                  "msp_p5_dyngather", "msp_p5_masksum", "msp_p5_symbol_step",
                  "msp_p5_dyngather_cluster", "msp_p5_symbol_smem",
                  "msp_p6_masksum", "msp_p6_symbol_step",
-                 "msp_p6_masksum_vec", "msp_p6_symbol_smem"):
+                 "msp_p6_masksum_vec", "msp_p6_symbol_smem",
+                 "msp_p5_dyngather_row", "msp_p5_masksum_vec"):
         assert name in kernels._SIGNATURES
 
 
