@@ -463,7 +463,13 @@ def extract_chm(d, blob):
 
 DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
             "k3_lzx_kernel", "k4_qtm_kernel")
-# P1's, P3's, P5's and P6's faithful ports, each beside its redesign
+# P2's and P4's redesigns, each with its 16-byte path and without
+P24_SASS = tuple(f"{k}<{v}>" for k in (
+    "p2_skel_vec_kernel", "p4_reduce_pred_vec", "p4_cond_vec_vec",
+    "p4_while22_vec", "p4_table_rw_vec", "p4_stage_store_vec",
+    "p4_minscalar_vec", "p4_smem_scalar_vec", "p4_u64shift_vec")
+    for v in ("false", "true"))
+# P1's, P2's, P3's, P5's and P6's faithful ports, each beside its redesign
 PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",
               "p1_vec_kernel<false>", "p1_vec_kernel<true>", "p1_reg_kernel",
               "p3_copy_kernel", "p3_par_kernel", "p5_dyngather_kernel",
@@ -472,7 +478,7 @@ PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",
               "p5_masksum_vec_kernel", "p5_symbol_kernel",
               "p5_symbol_smem_kernel", "p6_masksum_kernel",
               "p6_masksum_vec_kernel", "p6_symbol_kernel",
-              "p6_symbol_smem_kernel")
+              "p6_symbol_smem_kernel", "p2_skel_kernel") + P24_SASS
 # what a redesign's SASS must show: (kernel, count key, least, most)
 SASS_CHECKS = (("p6_symbol_smem_kernel", "loop LDS", 1, None),
                ("p6_symbol_smem_kernel", "LDL", 0, 0),
@@ -481,7 +487,8 @@ SASS_CHECKS = (("p6_symbol_smem_kernel", "loop LDS", 1, None),
                ("p5_row_kernel<true>", "LDL", 0, 0),
                ("p5_row_kernel<false>", "LDS", 1, None),
                ("p5_row_kernel<false>", "LDL", 0, 0),
-               ("p5_masksum_vec_kernel", "LDL", 0, 0))
+               ("p5_masksum_vec_kernel", "LDL", 0, 0)) + tuple(
+                   (k, "LDL", 0, 0) for k in P24_SASS)
 
 
 def build_report(t0, names):

@@ -37,13 +37,7 @@ constexpr int MASK_THREADS = 64;    // threads a mask-sum block (128 and
 constexpr int META_ROWS = 288;
 constexpr int WORD_ROWS = 32;
 
-SC_FN int32_t ldg(const int32_t* p) {
-#ifdef __CUDA_ARCH__
-  return __ldg(p);
-#else
-  return *p;
-#endif
-}
+using pg::ldg;
 
 // s mod N rounded to the floor (N >= 1): one compare and subtract where
 // 0 <= s < 2 N, else the remainder made non-negative.

@@ -98,6 +98,17 @@ SC_FN Place place(int32_t k, int32_t H, int32_t R, float inv_r) {
 
 SC_FN bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// A load of data the kernel never writes: through the read-only path on
+// the card.
+template <class T>
+SC_FN T ldg(const T* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
 // 16 bytes from global src to shared dst without a register: cp.async on
 // the card, complete at the next async_wait().
 SC_FN void copy16_async(void* dst, const void* src) {

@@ -19,7 +19,9 @@ thread by thread; ``host_twin_copy()``, ``host_twin_vec()``,
 ``host_twin_gather()`` and ``host_twin_gather2()`` do the same for the
 redesigned probes P3, P1, P5 and P6 (``probes_copy_core.cuh``,
 ``probes_vec.cuh``, ``probes_gather_core.cuh``,
-``probes_gather2_core.cuh``). Each twin is keyed by the sha256 of its
+``probes_gather2_core.cuh``), and ``host_twin_mosaic()`` and
+``host_twin_skel()`` for P4 and P2 (``probes_mosaic_core.cuh``,
+``probes_skel_core.cuh``). Each twin is keyed by the sha256 of its
 header and the headers it includes.
 """
 from __future__ import annotations
@@ -58,9 +60,11 @@ _SIGNATURES = {
     "msp_p1_vec": [_I, _I, _I, _I, _P, _P, _P],
     "msp_p1_registers": [_I, _I, _I, _P, _P],
     "msp_p2_skel": [_P, _I64, _P, _I, _I, _I, _I, _P, _P, _P],
+    "msp_p2_skel_vec": [_P, _I64, _P, _I, _I, _I, _I, _P, _P, _P],
     "msp_p3_copy": [_P, _P, _I, _P, _P, _P, _P],
     "msp_p3_copy_par": [_P, _P, _I, _P, _P, _P, _I, _P],
     "msp_p4_probe": [_I, _P, _P, _I64, _P, _P],
+    "msp_p4_probe_vec": [_I, _P, _P, _I64, _P, _P],
     "msp_p5_dyngather": [_P, _P, _P, _I, _I, _I, _P],
     "msp_p5_masksum": [_P, _P, _P, _I, _I, _P],
     "msp_p5_symbol_step": [_P, _P, _P, _P, _I, _I, _P],
@@ -365,6 +369,36 @@ def host_twin_gather2():
     handle.pg2_len_find_host.restype = None
     handle.pg2_symbol_host.argtypes = [_P, _P, _P, _P, _P, _I, _I]
     handle.pg2_symbol_host.restype = None
+    return handle
+
+
+def host_twin_mosaic():
+    """P4's eight redesigned probes, the block's threads one after
+    another: ``pm_probe_host(which, x, sm, stride, out)`` as
+    ``msp_p4_probe_vec`` (host pointers; -1 for an unknown probe)."""
+    handle = _twin("probes_mosaic_core.cuh", "PROBES_MOSAIC_CORE_HOST_TWIN",
+                   ["probes_gather_core.cuh", "stream_core.cuh"])
+    handle.pm_probe_host.argtypes = [_I, _P, _P, _I64, _P]
+    handle.pm_probe_host.restype = ctypes.c_int
+    return handle
+
+
+def host_twin_skel():
+    """P2's redesign, its blocks one after another: ``ps_skel_host(stream,
+    W, seed, L, T, G, WIN, out, cnt)`` as ``msp_p2_skel_vec`` (host
+    pointers), ``ps_skel_cover_host(..., hits)``, the same grid with each
+    store of out tallied into hits (256, L): a decode block's sets 0x100,
+    a zero block's adds 1, and ``ps_grid_host(L, T, blocks)``, the decode
+    and zero blocks the kernel launches."""
+    handle = _twin("probes_skel_core.cuh", "PROBES_SKEL_CORE_HOST_TWIN",
+                   ["probes_gather_core.cuh", "stream_core.cuh"])
+    args = _SIGNATURES["msp_p2_skel_vec"][:-1]
+    handle.ps_skel_host.argtypes = args
+    handle.ps_skel_host.restype = None
+    handle.ps_skel_cover_host.argtypes = args + [_P]
+    handle.ps_skel_cover_host.restype = None
+    handle.ps_grid_host.argtypes = [_I, _I, _P]
+    handle.ps_grid_host.restype = None
     return handle
 
 

@@ -11,12 +11,20 @@ never ran as written run here as the functions their bodies define:
 ``dma_row`` with its (64, 8, 128) source as an input (its call passed
 neither).
 
+The eight probes of the tool's ``run`` have a Hopper redesign beside the
+faithful port (``csrc/probes_mosaic_vec.cu``, ``probes_mosaic_core.cuh``):
+``probe(..., design="vec")`` is one launch of 256 threads that writes
+every element of its output (``p4_<name>_vec``), four elements a thread
+with 16-byte loads and stores, block values by warp reductions, scratch in
+registers. ``dma_row`` has no redesign yet.
+
 Run on the card: ``python -m libmspack_tpu_torch.tools.mosaic_probe
-[name ...]``. The probes are timed in turns (``timing.in_turns``) beside
+[name ...]``. Both designs are timed in turns (``timing.in_turns``) beside
 ``out.copy_(x)``, one launch that reads and writes x's bytes: the floor of
 a one-launch kernel this size, and beside ``torch.zeros`` of the output,
-the fill that each probe's call launches before its kernel; each probe's
-excess over the floor is printed.
+the fill that each faithful call launches before its kernel; each
+probe's excess over the floor is printed. The redesigns then run on the
+edge inputs of ``edges()``.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from . import Record, int32, launch, on, tensor, wrap32
+from .micro_gather import INT32_MAX, INT32_MIN, edge_records
 from .timing import header, in_turns
 
 SL, LN = 8, 128
@@ -39,10 +48,17 @@ CHAIN = {"reduce_pred": 10, "cond_vec": 11, "while22": 3, "table_rw": 2,
          "stage_store": 2, "minscalar": 11, "smem_scalar": 4, "u64shift": 3,
          "dma_row": 2}
 
+VEC_PROBES = PROBES[:-1]   # dma_row's redesign is not written yet
+DESIGNS = ("faithful", "vec")
+
 SOURCE = "probes_mosaic.cu"
 REPLACES = {f"p4_{n}": "tools/mosaic_probe.py:20" for n in PROBES}
+REPLACES.update({f"p4_{n}_vec": "tools/mosaic_probe.py:20"
+                 for n in VEC_PROBES})
 REPLACES.update(p4_smem_scalar="tools/mosaic_probe.py:91",
+                p4_smem_scalar_vec="tools/mosaic_probe.py:91",
                 p4_dma_row="tools/mosaic_probe.py:139")
+SOURCES = {f"p4_{n}_vec": "probes_mosaic_vec.cu" for n in VEC_PROBES}
 LAUNCHES = dict.fromkeys(REPLACES, 0)
 
 
@@ -96,12 +112,18 @@ def _dma_row(x, hbm):
 PLAIN = {n: globals()[f"_{n}"] for n in PROBES}
 
 
-def probe(name, x, aux=None, device="cuda") -> torch.Tensor:
+def probe(name, x, aux=None, device="cuda", design="faithful"
+          ) -> torch.Tensor:
     """Probe ``name`` on x, int32 ``(8, 128)``; ``aux`` is smem_scalar's
     int32 table (at least 4 rows; column 0 is read) or dma_row's int32
-    ``(64, 8, 128)`` source. Returns int32 ``(8, 128)``."""
+    ``(64, 8, 128)`` source. Returns int32 ``(8, 128)``. ``design="vec"``
+    launches the redesign (all probes but dma_row)."""
     if name not in PROBES:
         raise ValueError(f"unknown probe {name!r}: one of {PROBES}")
+    if design not in DESIGNS:
+        raise ValueError(f"design is one of {DESIGNS}")
+    if design != "faithful" and name not in VEC_PROBES:
+        raise ValueError(f"{name} has no {design!r} design")
     x = int32(x, "x", (SL, LN))
     if name in AUX_SHAPE:
         if aux is None:
@@ -115,11 +137,16 @@ def probe(name, x, aux=None, device="cuda") -> torch.Tensor:
         aux = None
     if dev.type == "cpu":
         return PLAIN[name](x, aux)
-    if aux is not None and aux.data_ptr() % 16:
-        aux = aux.clone()   # dma_row copies 16-byte chunks
-    out = torch.zeros((SL, LN), dtype=torch.int32, device=dev)
-    launch(LAUNCHES, f"p4_{name}", "msp_p4_probe", dev, PROBES.index(name),
-           x.data_ptr(), None if aux is None else aux.data_ptr(),
+    if design == "vec":   # writes every element of out
+        out = torch.empty((SL, LN), dtype=torch.int32, device=dev)
+        kernel, entry = f"p4_{name}_vec", "msp_p4_probe_vec"
+    else:
+        if aux is not None and aux.data_ptr() % 16:
+            aux = aux.clone()   # dma_row copies 16-byte chunks
+        out = torch.zeros((SL, LN), dtype=torch.int32, device=dev)
+        kernel, entry = f"p4_{name}", "msp_p4_probe"
+    launch(LAUNCHES, kernel, entry, dev, PROBES.index(name), x.data_ptr(),
+           None if aux is None else aux.data_ptr(),
            0 if aux is None else aux.stride(0), out.data_ptr())
     return out
 
@@ -135,6 +162,65 @@ def inputs(seed=0):
     return tensor(x), {k: tensor(v) for k, v in aux.items()}
 
 
+def edges(seed=1):
+    """The redesigns' edge inputs, ``{name: [(label, unaligned, (x,) or
+    (x, aux))]}`` on the CPU, for each probe of VEC_PROBES: x[0, 0] = 16,
+    -8, 3, 0, 4 and -4 (stage_store's slot and row hit and miss), x <= 0
+    everywhere (reduce_pred's 0, cond_vec's -1, minscalar's 99), x > 99
+    everywhere (minscalar's least x, above the 99 it puts for x <= 0),
+    int32's extremes in x and the table (every sum wraps), and x one
+    element off
+    16-byte alignment (``unaligned``: made so on the device, the element
+    path); and smem_scalar's table with row stride 3."""
+    x, aux = inputs(seed)
+    rng = np.random.RandomState(seed)
+    xs = []
+    for x00 in (16, -8, 3, 0, 4, -4):
+        v = x.clone()
+        v[0, 0] = x00
+        xs.append((f"x[0, 0] = {x00}", False, v))
+    xs.append(("x <= 0", False, -x.abs()))
+    xs.append(("x > 99", False,
+               tensor(rng.randint(100, 1 << 20, (SL, LN)).astype(np.int32))))
+    ext = tensor(rng.randint(INT32_MIN, INT32_MAX + 1, (SL, LN),
+                             dtype=np.int64).astype(np.int32))
+    ext.view(-1)[:4] = torch.tensor([INT32_MAX, INT32_MIN, -1, 0])
+    xs.append(("int32 extremes", False, ext))
+    xs.append(("x unaligned", True, x))
+    sm_ext = torch.tensor([[INT32_MAX, 1], [INT32_MAX, 2], [5, 3],
+                           [INT32_MIN, 4]], dtype=torch.int32)
+    cases = {}
+    for name in VEC_PROBES:
+        cases[name] = [(label, unaligned, (v,)) for label, unaligned, v
+                       in xs]
+    cases["smem_scalar"] = [
+        (label, unaligned, (v, sm_ext if label == "int32 extremes"
+                            else aux["smem_scalar"]))
+        for label, unaligned, v in xs]
+    sm3 = tensor(rng.randint(-50, 50, (5, 3)).astype(np.int32))
+    cases["smem_scalar"].append(("table row stride 3", False, (x, sm3)))
+    return cases
+
+
+def nbytes(name) -> int:
+    """x read and out written, and what the probe reads besides."""
+    return 8 * SL * LN + (16 * LN * 4 if name == "dma_row" else 0) + \
+        (16 if name == "smem_scalar" else 0)
+
+
+def edge_runs(dev, names=VEC_PROBES) -> list[Record]:
+    """The redesigns of ``names`` on their inputs of ``edges()``."""
+    records = []
+    for name, cases in edges().items():
+        if name in names:
+            records += edge_records(
+                dev, f"p4_{name}_vec", cases,
+                lambda *a, n=name: probe(n, *a[:-1], device=a[-1],
+                                         design="vec"),
+                lambda *a, n=name: nbytes(n), CHAIN[name])
+    return records
+
+
 def main(argv=(), device="cuda") -> list[Record]:
     names = list(argv) or list(PROBES)
     dev, _ = on(device)
@@ -143,8 +229,11 @@ def main(argv=(), device="cuda") -> list[Record]:
     xd = x.to(dev)
     auxd = {k: v.to(dev) for k, v in aux.items()}
     floor_out = torch.empty_like(xd)
-    runs = {name: lambda n=name: probe(n, xd, auxd.get(n), dev)
-            for name in names}
+    runs = {}
+    for name in names:
+        for d in DESIGNS if name in VEC_PROBES else DESIGNS[:1]:
+            runs[name, d] = lambda n=name, d=d: probe(n, xd, auxd.get(n),
+                                                      dev, d)
     runs["copy_ floor"] = lambda: floor_out.copy_(xd)
     runs["zero fill"] = lambda: torch.zeros((SL, LN), dtype=torch.int32,
                                             device=dev)
@@ -154,19 +243,19 @@ def main(argv=(), device="cuda") -> list[Record]:
           f"output's zero fill {times['zero fill'] * 1e3:.3f} us/call",
           flush=True)
     records = []
-    for name in names:
-        a, ms = aux.get(name), times[name]
-        out = outs[name].cpu()
+    for (name, d), ms in ((k, v) for k, v in times.items()
+                          if isinstance(k, tuple)):
+        a = aux.get(name)
+        out = outs[name, d].cpu()
         ok = torch.equal(out, probe(name, x, a, "cpu"))
-        print(f"{name}: {'OK' if ok else 'FAIL: differs from plain'}  "
+        print(f"{name} {d}: {'OK' if ok else 'FAIL: differs from plain'}  "
               f"({ms * 1e3:.3f} us/call, {(ms - floor) * 1e3:.3f} us over "
               "the copy_ floor)", flush=True)
-        nbytes = 8 * SL * LN + (16 * LN * 4 if name == "dma_row" else 0) + \
-            (16 if name == "smem_scalar" else 0)
         records.append(Record(
-            f"p4_{name}", "(8, 128)", ms, out,
-            lambda n=name, a=a: probe(n, x, a, "cpu"), nbytes, CHAIN[name]))
-    return records
+            f"p4_{name}" + ("_vec" if d == "vec" else ""), "(8, 128)", ms,
+            out, lambda n=name, a=a: probe(n, x, a, "cpu"), nbytes(name),
+            CHAIN[name]))
+    return records + edge_runs(dev, names)
 
 
 if __name__ == "__main__":

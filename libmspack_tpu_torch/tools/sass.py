@@ -34,7 +34,11 @@ KERNELS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
            "p5_symbol_kernel", "p5_cluster_kernel", "p5_symbol_smem_kernel",
            "p5_row_kernel", "p5_masksum_vec_kernel",
            "p6_masksum_kernel", "p6_symbol_kernel", "p6_masksum_vec_kernel",
-           "p6_symbol_smem_kernel",
+           "p6_symbol_smem_kernel", "p2_skel_vec_kernel",
+           # P4's redesigns before the faithful names they contain
+           "p4_reduce_pred_vec", "p4_cond_vec_vec", "p4_while22_vec",
+           "p4_table_rw_vec", "p4_stage_store_vec", "p4_minscalar_vec",
+           "p4_smem_scalar_vec", "p4_u64shift_vec",
            "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",
            "minscalar", "smem_scalar", "u64shift", "dma_row")
 OPS = ("LDG", "LDS", "LDL", "LD", "STG", "STS", "STL", "ST", "ISETP", "SEL",

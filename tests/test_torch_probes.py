@@ -209,6 +209,109 @@ def test_interpret_dma_visible_before_wait():
     np.testing.assert_array_equal(np.asarray(out), src)
 
 
+@pytest.fixture(scope="module")
+def skel_twin():
+    try:
+        return kernels.host_twin_skel()
+    except RuntimeError as e:
+        pytest.skip(f"g++ build of the kernel core unavailable: {e}")
+
+
+def _skel_inputs(L, T, seed=0):
+    rng = np.random.RandomState(L + 7 * T + seed)
+    stream = rng.randint(0, 1 << 30, (L, max(T + 64, 128))).astype(np.uint32)
+    return stream, rng.randint(-(1 << 20), 1 << 20, L).astype(np.int32)
+
+
+def _skel_twin(twin, stream, seed, T, unaligned=False, hits=None):
+    """P2's redesign through its twin on numpy inputs (seed and out 4 bytes
+    off 16-byte alignment where ``unaligned``: zero stores an element at a
+    time); with ``hits`` (256, L) int32, its stores tallied there
+    instead."""
+    L, W = stream.shape
+    off = 4 if unaligned else 0
+    seed = _placed(seed, off)
+    out = _placed(np.full((256, L), -7, np.int32), off)
+    cnt = _placed(np.full(L, -7, np.int32), 0)
+    args = (stream.ctypes.data, W, seed.ctypes.data, L, T, micro_skel.G,
+            micro_skel.WIN, out.ctypes.data, cnt.ctypes.data)
+    if hits is None:
+        twin.ps_skel_host(*args)
+    else:
+        twin.ps_skel_cover_host(*args, hits.ctypes.data)
+    return out, cnt
+
+
+@pytest.mark.parametrize("L", [8, 16, 32, 100])
+@pytest.mark.parametrize("T", [0, 8, 256, 300])
+def test_skel_vec_twin(skel_twin, L, T):
+    """The redesign's twin equals skel_plain: L = 8 re-windows each lane
+    twice a step, 16 = G all once, 32 half, 100 is L % 4 != 0 (zero stores
+    an element at a time); T = 0 zeroes every row, 256 writes every row,
+    300 overwrites rows 0-43."""
+    stream, seed = _skel_inputs(L, T)
+    out, cnt = _skel_twin(skel_twin, stream, seed, T)
+    want_out, want_cnt = micro_skel.skel_plain(_t(stream), _t(seed), T)
+    np.testing.assert_array_equal(out, want_out.numpy())
+    np.testing.assert_array_equal(cnt, want_cnt.numpy())
+
+
+def test_skel_vec_twin_unaligned(skel_twin):
+    """Seed and out 4 bytes off 16-byte alignment, which sends the zero
+    blocks to element stores at L = 32, give the same rows as the 16-byte
+    path."""
+    stream, seed = _skel_inputs(32, 40)
+    a = _skel_twin(skel_twin, stream, seed, 40)
+    b = _skel_twin(skel_twin, stream, seed, 40, unaligned=True)
+    want_out, want_cnt = micro_skel.skel_plain(_t(stream), _t(seed), 40)
+    for out, cnt in (a, b):
+        np.testing.assert_array_equal(out, want_out.numpy())
+        np.testing.assert_array_equal(cnt, want_cnt.numpy())
+
+
+def test_skel_vec_twin_matches_jax(jax_tool, skel_twin):
+    """The twin's counts at (2, 16), T = 8, against the JAX tool's kernel
+    (make_kernel, interpret mode)."""
+    ms, _ = jax_tool("micro_skel")
+    rng = np.random.RandomState(26)
+    stream = rng.randint(0, 1 << 30, (32, 4096)).astype(np.uint32)
+    seed = rng.randint(0, 1 << 20, (2, 16)).astype(np.int32)
+    want = np.asarray(ms.make_kernel(2, 16, 8, interpret=True)(
+        jnp.asarray(stream), jnp.asarray(seed)))
+    _, cnt = _skel_twin(skel_twin, stream, seed.ravel(), 8)
+    np.testing.assert_array_equal(cnt.reshape(2, 16), want)
+
+
+@pytest.mark.parametrize("T", [0, 8, 64, 255, 256, 300])
+@pytest.mark.parametrize("L", [100, 256])
+def test_skel_vec_covers_each_row_once(skel_twin, L, T):
+    """The decode blocks write the rows t mod 256 (t < T) and the zero
+    blocks the rows [min(T, 256), 256), each element of the latter once:
+    every element of out is written by exactly one kind of block, so the
+    wrapper's torch.empty needs no fill; at T >= 256 the grid has no zero
+    block."""
+    stream, seed = _skel_inputs(L, T)
+    hits = np.zeros((256, L), np.int32)
+    _skel_twin(skel_twin, stream, seed, T, hits=hits)
+    r0 = min(T, 256)
+    assert (hits[:r0] == 0x100).all() and (hits[r0:] == 1).all()
+    blocks = np.zeros(2, np.int32)
+    skel_twin.ps_grid_host(L, T, blocks.ctypes.data)
+    assert blocks[0] == -(-L // 64)   # a lane a thread
+    assert (blocks[1] == 0) == (T >= 256)
+
+
+def test_skel_designs_on_cpu():
+    """On the CPU both designs are the plain version; an unknown design
+    raises."""
+    stream, seed = _skel_inputs(16, 8)
+    a = micro_skel.skel(_t(stream), _t(seed), 8, "cpu")
+    b = micro_skel.skel(_t(stream), _t(seed), 8, "cpu", "vec")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    with pytest.raises(ValueError, match="design"):
+        micro_skel.skel(_t(stream), _t(seed), 8, "cpu", "wide")
+
+
 # ---------------------------------------------------------------- P3
 # whether the case's frame is LZ77's: the TPU kernel's chunks past 128
 # elements are not
@@ -360,6 +463,83 @@ def test_mosaic_probe_cli_defects_are_the_tools():
     assert '"smem_scalar"' not in src
     assert "def probe_dma_row(x_ref, o_ref, hbm, win, sem)" in src
     assert set(mosaic_probe.PROBES) >= {"smem_scalar", "dma_row"}
+
+
+@pytest.fixture(scope="module")
+def mosaic_twin():
+    try:
+        return kernels.host_twin_mosaic()
+    except RuntimeError as e:
+        pytest.skip(f"g++ build of the kernel core unavailable: {e}")
+
+
+def _mosaic_twin(twin, name, x, aux=None, unaligned=False):
+    """P4's redesign of probe ``name`` through its twin on numpy x (4
+    bytes off 16-byte alignment where ``unaligned``: the element path);
+    ``aux`` is smem_scalar's table, any row stride."""
+    x = _placed(np.asarray(x, np.int32), 4 if unaligned else 0)
+    out = _placed(np.full((SL, LN), -7, np.int32), 0)
+    sm = None if aux is None else np.ascontiguousarray(aux, np.int32)
+    rc = twin.pm_probe_host(mosaic_probe.PROBES.index(name), x.ctypes.data,
+                            None if sm is None else sm.ctypes.data,
+                            0 if sm is None else sm.shape[1],
+                            out.ctypes.data)
+    assert rc == 0
+    return out
+
+
+_MOSAIC_EDGES = mosaic_probe.edges()
+_MOSAIC_EDGE_LABELS = list(dict.fromkeys(
+    label for cases in _MOSAIC_EDGES.values() for label, _, _ in cases))
+
+
+@pytest.mark.parametrize("label", _MOSAIC_EDGE_LABELS)
+def test_mosaic_vec_twin_edges(mosaic_twin, label):
+    """The twin of each probe that has the card's edge input ``label``
+    (mosaic_probe.edges(): x[0, 0] at test_mosaic_probe_matches_jax's
+    cases and stage_store's other hits and misses, x <= 0 and x > 99
+    everywhere, int32's extremes, x unaligned, smem_scalar's table with
+    row stride 3) equals PLAIN."""
+    ran = []
+    for name, cases in _MOSAIC_EDGES.items():
+        for lab, unaligned, ins in cases:
+            if lab != label:
+                continue
+            x, aux = ins[0], (ins[1] if len(ins) > 1 else None)
+            got = _mosaic_twin(mosaic_twin, name, x.numpy(),
+                               None if aux is None else aux.numpy(),
+                               unaligned)
+            want = mosaic_probe.PLAIN[name](x, aux)
+            np.testing.assert_array_equal(got, want.numpy(), err_msg=name)
+            ran.append(name)
+    assert ran == (["smem_scalar"] if label == "table row stride 3"
+                   else list(mosaic_probe.VEC_PROBES))
+
+
+@pytest.mark.parametrize("name,label", [("table_rw", "x[0, 0] = 16"),
+                                        ("minscalar", "x > 99")])
+def test_mosaic_vec_twin_matches_jax(jax_tool, mosaic_twin, name, label):
+    """table_rw's redesign (its 16-row table in registers), and minscalar's
+    where every x exceeds 99 (its minimum is then the least x), through
+    the twin against the JAX tool's probe body (interpret mode)."""
+    mp, _ = jax_tool("mosaic_probe")
+    (x,), = [ins for lab, _, ins in _MOSAIC_EDGES[name] if lab == label]
+    want = np.asarray(_mosaic_jax(mp, name, x.numpy(), None))
+    got = _mosaic_twin(mosaic_twin, name, x.numpy())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mosaic_vec_refusals(mosaic_twin):
+    """dma_row has no redesign: design="vec" raises on any device, as an
+    unknown design does; the twin refuses an unknown probe."""
+    x, aux = mosaic_probe.inputs()
+    with pytest.raises(ValueError, match="dma_row"):
+        mosaic_probe.probe("dma_row", x, aux["dma_row"], "cpu", "vec")
+    with pytest.raises(ValueError, match="design"):
+        mosaic_probe.probe("minscalar", x, None, "cpu", "wide")
+    out = np.zeros((SL, LN), np.int32)
+    assert mosaic_twin.pm_probe_host(8, x.numpy().ctypes.data, None, 0,
+                                     out.ctypes.data) == -1
 
 
 # ---------------------------------------------------------------- P5
@@ -888,14 +1068,17 @@ def test_probe_kernels_in_the_library():
     assert {"probes_gather.cuh", "probes_copy_core.cuh",
             "probes_vec.cuh", "probes_gather_core.cuh",
             "probes_gather_cluster.cu", "probes_gather2_core.cuh",
-            "probes_gather2_smem.cu", "probes_gather_row.cu"} <= srcs
+            "probes_gather2_smem.cu", "probes_gather_row.cu",
+            "probes_mosaic_core.cuh", "probes_mosaic_vec.cu",
+            "probes_skel_core.cuh", "probes_skel_vec.cu"} <= srcs
     for name in ("msp_p1_vec", "msp_p1_registers", "msp_p2_skel",
                  "msp_p3_copy", "msp_p3_copy_par", "msp_p4_probe",
                  "msp_p5_dyngather", "msp_p5_masksum", "msp_p5_symbol_step",
                  "msp_p5_dyngather_cluster", "msp_p5_symbol_smem",
                  "msp_p6_masksum", "msp_p6_symbol_step",
                  "msp_p6_masksum_vec", "msp_p6_symbol_smem",
-                 "msp_p5_dyngather_row", "msp_p5_masksum_vec"):
+                 "msp_p5_dyngather_row", "msp_p5_masksum_vec",
+                 "msp_p4_probe_vec", "msp_p2_skel_vec"):
         assert name in kernels._SIGNATURES
 
 
@@ -952,3 +1135,23 @@ def test_sass_summary_finds_loads_in_loops():
     m = got["p5_masksum_kernel"]
     assert (m["loop LDG"], m["loop ISETP"], m["loop STG"]) == (1, 1, 0)
     assert not any(k.startswith("loop ") for k in got["p2_skel_kernel"])
+
+
+def test_sass_names_p4_redesigns():
+    """A P4 redesign's mangled name holds its faithful probe's name
+    (p4_reduce_pred_vec, reduce_pred): the summary keeps them apart, and
+    keeps P2's redesign apart from the faithful p2_skel_kernel."""
+    listing = """
+        Function : _ZN12_GLOBAL__N_118p4_reduce_pred_vecILb1EEEvPKiS2_lPi
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        Function : _ZN12_GLOBAL__N_111reduce_predEPKiS1_lPi
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0010*/                   STG.E desc[UR4][R6.64], R4 ;
+        Function : _ZN12_GLOBAL__N_118p2_skel_vec_kernelILb0EEEvN2ps4ArgsENS0_4GridE
+        /*0000*/                   STG.E desc[UR4][R6.64], R4 ;
+"""
+    got = sass.summarise(listing)
+    assert got["p4_reduce_pred_vec<true>"]["insns"] == 1
+    assert got["reduce_pred"]["insns"] == 2
+    assert got["p2_skel_vec_kernel<false>"]["STG"] == 1
+    assert "p2_skel_kernel" not in got
