@@ -467,7 +467,8 @@ DECODERS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
 P24_SASS = tuple(f"{k}<{v}>" for k in (
     "p2_skel_vec_kernel", "p4_reduce_pred_vec", "p4_cond_vec_vec",
     "p4_while22_vec", "p4_table_rw_vec", "p4_stage_store_vec",
-    "p4_minscalar_vec", "p4_smem_scalar_vec", "p4_u64shift_vec")
+    "p4_minscalar_vec", "p4_smem_scalar_vec", "p4_u64shift_vec",
+    "p4_dma_row_vec")
     for v in ("false", "true"))
 # P1's, P2's, P3's, P5's and P6's faithful ports, each beside its redesign
 PROBE_SASS = ("p1_sweep_kernel<false>", "p1_sweep_kernel<true>",

@@ -15,8 +15,11 @@
 //   minscalar    x + min(where(x > 0, x, 99))
 //   smem_scalar  x + sm[0, 0] + sm[1, 0] + sm[2, 0] + sm[3, 0]
 //   u64shift     the low word of (3 lo : lo) >> (x & 31), lo = x as uint32
-//   dma_row      row r of hbm[w], r = t mod 8, w = t mod 4 (floor modulo),
-//                in row r; 0 elsewhere
+//   dma_row      row r of hbm[w] in row r, 0 elsewhere: r = t mod 8 (floor
+//                modulo), w = t rem 4 (truncated) where that is >= 0, else
+//                48, the slab the JAX body reads in interpret mode (its
+//                negative start wraps by 64 and clamps so that 16 slabs
+//                fit; on a TPU it is out of range)
 // Where the TPU kernel left a value unwritten or read scratch it had not
 // written (reduce_pred's output, stage_store's stage[0, 0], dma_row's other
 // rows), the port defines it as 0. smem_scalar's table and dma_row's
@@ -121,7 +124,8 @@ __global__ void dma_row(const int32_t* x, const int32_t* hbm, int64_t,
   __shared__ __align__(16) int32_t win[16][LN];
   int i = threadIdx.x;
   int32_t t = x[0];
-  int r = (t % SL + SL) % SL, w = (t % 4 + 4) % 4;
+  int r = (t % SL + SL) % SL, w = t % 4;
+  if (w < 0) w = 64 - 16;  // slabs w..w+15 lie inside hbm
   if (i < 16 * LN / 4) {
     int j = i / (LN / 4), c = (i % (LN / 4)) * 4;
     __pipeline_memcpy_async(&win[j][c],

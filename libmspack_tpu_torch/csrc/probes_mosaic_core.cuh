@@ -1,6 +1,7 @@
-// P4 redesigned: the eight construct probes of tools/mosaic_probe.py's run
-// (pallas_call at :20; smem_scalar's body at :91) as single launches that
-// write their whole output (probes_mosaic_vec.cu's kernels).
+// P4 redesigned: the nine construct probes of tools/mosaic_probe.py (its
+// run's pallas_call at :20, smem_scalar's body at :91, dma_row's call at
+// :139) as single launches that write their whole output
+// (probes_mosaic_vec.cu's kernels).
 //
 // Each probe maps int32 x (8, 128) to int32 out (8, 128); PLAIN in
 // libmspack_tpu_torch/tools/mosaic_probe.py is the function. A thread takes
@@ -21,7 +22,9 @@
 // only slot 0, row 0 is read, so its store is a select.
 // reduce_pred writes 0 where no x > 0 (the faithful kernel leaves those
 // elements to its wrapper's zero fill), so a call is one launch into
-// torch.empty.
+// torch.empty. dma_row (dma_row_quad) reads x[0, 0] alone: warp k covers
+// output row k, the source row's warp loads it by quads, the other warps
+// store zeros with no load; no shared memory, no barrier.
 //
 // The same functions run in the kernels and in a host twin that g++ builds
 // from this header (define PROBES_MOSAIC_CORE_HOST_TWIN): the twin runs the
@@ -47,6 +50,7 @@ enum Probe {
   MINSCALAR,
   SMEM_SCALAR,
   U64SHIFT,
+  DMA_ROW,
   NPROBES
 };
 
@@ -100,6 +104,46 @@ SC_FN int32_t partial(const int32_t* v) {
 template <int P>
 SC_FN int32_t combine(int32_t a, int32_t b) {
   return reduce_of<P>() == MIN ? (a < b ? a : b) : (a | b);
+}
+
+// dma_row: t = x[0, 0] picks output row r = t mod 8 (floor modulo) and
+// source slab w = t rem 4 (truncated, as lax.rem) where that is >= 0, else
+// DMA_NEG_SLAB, the slab the JAX body reads as the JAX package's tests run
+// it (mosaic_probe.py's DMA_NEG_SLAB says why).
+constexpr int DMA_SLABS = 64, DMA_NEG_SLAB = DMA_SLABS - 16;
+constexpr int ROW_QUADS = LN / QUAD;  // 32: a warp an output row
+
+SC_FN int dma_row_of(int32_t t) {
+  int r = t % SL;
+  return r < 0 ? r + SL : r;
+}
+
+SC_FN int dma_slab_of(int32_t t) {
+  int w = t % 4;
+  return w < 0 ? DMA_NEG_SLAB : w;
+}
+
+// Thread q's quad of dma_row's output from hbm, contiguous (64, 8, 128)
+// (VEC: 16-byte aligned): quad q lies in row q / ROW_QUADS, and only the
+// source row's quads load, from hbm[w, r].
+template <bool VEC>
+SC_FN void dma_row_quad(const int32_t* x, const int32_t* hbm, int q,
+                        int32_t* o) {
+  int32_t t = pg::ldg(x);  // one address for the whole block
+  if (q / ROW_QUADS == dma_row_of(t)) {
+    load_quad<VEC>(hbm + (int64_t)dma_slab_of(t) * N, q, o);
+  } else {
+#pragma unroll
+    for (int u = 0; u < QUAD; u++) o[u] = 0;
+  }
+}
+
+// Whether a call takes the 16-byte path: what it reads and writes by quads
+// is 16-byte aligned (x and out; dma_row's aux and out, x's one word at
+// any alignment).
+SC_FN bool vec_path(int which, const void* x, const void* aux,
+                    const void* out) {
+  return pg::aligned16(which == DMA_ROW ? aux : x) && pg::aligned16(out);
 }
 
 // What every element's result may depend on besides its own x: the
@@ -191,11 +235,24 @@ SC_FN Block block_inputs(const int32_t* x, const int32_t* sm,
 #ifdef PROBES_MOSAIC_CORE_HOST_TWIN
 // msp_p4_probe_vec's function on host pointers, the block's threads one
 // after another: x, out (8, 128); sm: smem_scalar's table (rows `stride`
-// apart) or null.
+// apart), dma_row's (64, 8, 128) source, or null.
 template <int P>
 static void probe_host(const int32_t* x, const int32_t* sm, int64_t stride,
                        int32_t* out) {
-  bool vec = pg::aligned16(x) && pg::aligned16(out);
+  bool vec = pm::vec_path(P, x, sm, out);
+  if (P == pm::DMA_ROW) {
+    for (int q = 0; q < pm::THREADS; q++) {
+      int32_t o[pm::QUAD];
+      if (vec) {
+        pm::dma_row_quad<true>(x, sm, q, o);
+        pm::store_quad<true>(out, q, o);
+      } else {
+        pm::dma_row_quad<false>(x, sm, q, o);
+        pm::store_quad<false>(out, q, o);
+      }
+    }
+    return;
+  }
   int32_t v[pm::THREADS][pm::QUAD] = {};
   pm::Block b = pm::block_inputs<P>(x, sm, stride);
   for (int q = 0; q < pm::THREADS; q++) {
@@ -223,7 +280,8 @@ static const HostProbe HOST_PROBES[pm::NPROBES] = {
     probe_host<pm::REDUCE_PRED>, probe_host<pm::COND_VEC>,
     probe_host<pm::WHILE22>,     probe_host<pm::TABLE_RW>,
     probe_host<pm::STAGE_STORE>, probe_host<pm::MINSCALAR>,
-    probe_host<pm::SMEM_SCALAR>, probe_host<pm::U64SHIFT>};
+    probe_host<pm::SMEM_SCALAR>, probe_host<pm::U64SHIFT>,
+    probe_host<pm::DMA_ROW>};
 
 // -1 for an unknown probe.
 extern "C" int pm_probe_host(int which, const int32_t* x, const int32_t* sm,

@@ -1,4 +1,4 @@
-// P4 redesigned for Hopper: the eight construct probes as single launches
+// P4 redesigned for Hopper: the nine construct probes as single launches
 // that write their whole output. probes_mosaic_core.cuh holds the probes'
 // functions and says how they work; the faithful port stays in
 // probes_mosaic.cu.
@@ -6,14 +6,18 @@
 // Replaces, beside that port, the Pallas kernels of tools/mosaic_probe.py's
 // run (pallas_call at :20): p4_reduce_pred_vec, p4_cond_vec_vec,
 // p4_while22_vec, p4_table_rw_vec, p4_stage_store_vec, p4_minscalar_vec,
-// p4_u64shift_vec, and p4_smem_scalar_vec for probe_smem_scalar (:91).
+// p4_u64shift_vec; p4_smem_scalar_vec for probe_smem_scalar (:91); and
+// p4_dma_row_vec for probe_dma_row (pallas_call at :139).
 //
-// What bounds them on this card: nothing but the launch; each moves 8 KiB.
-// The faithful call is two launches (its wrapper's zero fill, then a block
-// of 1024 threads with one 4-byte load and store each, and for table_rw 64
-// KiB of dynamic shared memory); here it is one block of 256 threads with
-// one 16-byte load and store each, scratch in registers, and a warp
-// reduction where the probe needs the whole block.
+// What bounds them on this card: nothing but the launch; each moves 8 KiB
+// or less (dma_row: x[0, 0], one 512-byte row, the output). The faithful
+// call is two launches (its wrapper's zero fill, then a block of 1024
+// threads with one 4-byte load and store each, and for table_rw 64 KiB of
+// dynamic shared memory; dma_row's wrapper also clones a misaligned
+// source, and its kernel copies 16 rows into shared memory to read one);
+// here it is one block of 256 threads with one 16-byte load and store
+// each, scratch in registers, and a warp reduction where the probe needs
+// the whole block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,7 +27,7 @@ namespace {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-// One probe P on the block: VEC where x and out are 16-byte aligned.
+// One probe P on the block: VEC as pm::vec_path.
 template <int P, bool VEC>
 __device__ __forceinline__ void probe(const int32_t* __restrict__ x,
                                       const int32_t* __restrict__ sm,
@@ -31,6 +35,12 @@ __device__ __forceinline__ void probe(const int32_t* __restrict__ x,
                                       int32_t* __restrict__ out) {
   __shared__ int32_t part[pm::WARPS];
   int q = threadIdx.x;
+  if (P == pm::DMA_ROW) {  // sm is the (64, 8, 128) source
+    int32_t o[pm::QUAD];
+    pm::dma_row_quad<VEC>(x, sm, q, o);
+    pm::store_quad<VEC>(out, q, o);
+    return;
+  }
   int32_t v[pm::QUAD] = {0, 0, 0, 0};
   if (P != pm::WHILE22) pm::load_quad<VEC>(x, q, v);
   pm::Block b = pm::block_inputs<P>(x, sm, stride);
@@ -69,6 +79,7 @@ P4_VEC_KERNEL(stage_store, pm::STAGE_STORE)
 P4_VEC_KERNEL(minscalar, pm::MINSCALAR)
 P4_VEC_KERNEL(smem_scalar, pm::SMEM_SCALAR)
 P4_VEC_KERNEL(u64shift, pm::U64SHIFT)
+P4_VEC_KERNEL(dma_row, pm::DMA_ROW)
 
 typedef void (*Kernel)(const int32_t*, const int32_t*, int64_t, int32_t*);
 
@@ -77,21 +88,22 @@ const Kernel KERNELS[2][pm::NPROBES] = {
     {p4_reduce_pred_vec<false>, p4_cond_vec_vec<false>,
      p4_while22_vec<false>, p4_table_rw_vec<false>,
      p4_stage_store_vec<false>, p4_minscalar_vec<false>,
-     p4_smem_scalar_vec<false>, p4_u64shift_vec<false>},
+     p4_smem_scalar_vec<false>, p4_u64shift_vec<false>,
+     p4_dma_row_vec<false>},
     {p4_reduce_pred_vec<true>, p4_cond_vec_vec<true>, p4_while22_vec<true>,
      p4_table_rw_vec<true>, p4_stage_store_vec<true>,
      p4_minscalar_vec<true>, p4_smem_scalar_vec<true>,
-     p4_u64shift_vec<true>}};
+     p4_u64shift_vec<true>, p4_dma_row_vec<true>}};
 
 }  // namespace
 
 // x, out: (8, 128) int32, every element of out written; aux: smem_scalar's
-// table (row stride `stride`, any alignment) or null. The 16-byte path where
-// x and out are 16-byte aligned.
+// table (row stride `stride`), dma_row's contiguous (64, 8, 128) source,
+// or null; any alignment. The 16-byte path where pm::vec_path holds.
 extern "C" int msp_p4_probe_vec(int which, const void* x, const void* aux,
                                 int64_t stride, void* out, void* stream) {
   if (which < 0 || which >= pm::NPROBES) return (int)cudaErrorInvalidValue;
-  bool vec = pg::aligned16(x) && pg::aligned16(out);
+  bool vec = pm::vec_path(which, x, aux, out);
   void* args[] = {&x, &aux, &stride, &out};
   cudaError_t e = cudaLaunchKernel((const void*)KERNELS[vec][which], dim3(1),
                                    dim3(pm::THREADS), args, 0,

@@ -373,7 +373,7 @@ def host_twin_gather2():
 
 
 def host_twin_mosaic():
-    """P4's eight redesigned probes, the block's threads one after
+    """P4's nine redesigned probes, the block's threads one after
     another: ``pm_probe_host(which, x, sm, stride, out)`` as
     ``msp_p4_probe_vec`` (host pointers; -1 for an unknown probe)."""
     handle = _twin("probes_mosaic_core.cuh", "PROBES_MOSAIC_CORE_HOST_TWIN",

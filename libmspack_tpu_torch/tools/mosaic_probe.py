@@ -11,12 +11,13 @@ never ran as written run here as the functions their bodies define:
 ``dma_row`` with its (64, 8, 128) source as an input (its call passed
 neither).
 
-The eight probes of the tool's ``run`` have a Hopper redesign beside the
-faithful port (``csrc/probes_mosaic_vec.cu``, ``probes_mosaic_core.cuh``):
+All nine probes have a Hopper redesign beside the faithful port
+(``csrc/probes_mosaic_vec.cu``, ``probes_mosaic_core.cuh``):
 ``probe(..., design="vec")`` is one launch of 256 threads that writes
 every element of its output (``p4_<name>_vec``), four elements a thread
 with 16-byte loads and stores, block values by warp reductions, scratch in
-registers. ``dma_row`` has no redesign yet.
+registers. ``dma_row``'s redesign reads x[0, 0] alone; warp k writes
+output row k, the source row (warp r) or zeros (the others).
 
 Run on the card: ``python -m libmspack_tpu_torch.tools.mosaic_probe
 [name ...]``. Both designs are timed in turns (``timing.in_turns``) beside
@@ -48,17 +49,16 @@ CHAIN = {"reduce_pred": 10, "cond_vec": 11, "while22": 3, "table_rw": 2,
          "stage_store": 2, "minscalar": 11, "smem_scalar": 4, "u64shift": 3,
          "dma_row": 2}
 
-VEC_PROBES = PROBES[:-1]   # dma_row's redesign is not written yet
 DESIGNS = ("faithful", "vec")
 
 SOURCE = "probes_mosaic.cu"
-REPLACES = {f"p4_{n}": "tools/mosaic_probe.py:20" for n in PROBES}
-REPLACES.update({f"p4_{n}_vec": "tools/mosaic_probe.py:20"
-                 for n in VEC_PROBES})
+REPLACES = {f"p4_{n}{d}": "tools/mosaic_probe.py:20" for n in PROBES
+            for d in ("", "_vec")}
 REPLACES.update(p4_smem_scalar="tools/mosaic_probe.py:91",
                 p4_smem_scalar_vec="tools/mosaic_probe.py:91",
-                p4_dma_row="tools/mosaic_probe.py:139")
-SOURCES = {f"p4_{n}_vec": "probes_mosaic_vec.cu" for n in VEC_PROBES}
+                p4_dma_row="tools/mosaic_probe.py:139",
+                p4_dma_row_vec="tools/mosaic_probe.py:139")
+SOURCES = {f"p4_{n}_vec": "probes_mosaic_vec.cu" for n in PROBES}
 LAUNCHES = dict.fromkeys(REPLACES, 0)
 
 
@@ -101,9 +101,19 @@ def _u64shift(x, _):
     return wrap32(torch.where(k == 0, lo, mid))
 
 
+# dma_row's slab where t rem 4 < 0. The JAX body copies hbm.at[pl.ds(w, 16),
+# r] with w = lax.rem(t, 4), which truncates: on a TPU a negative start is
+# out of range. Interpret mode, which the JAX package's tests run, reads a
+# negative row index r modulo 8 (floor modulo) but wraps the negative start
+# w to w + 64 and then clamps it so that 16 slabs fit in 64: slab 48. The
+# port follows the JAX package as its tests run it.
+DMA_NEG_SLAB = 64 - 16
+
+
 def _dma_row(x, hbm):
     t = int(x[0, 0])
-    r, w = t % SL, t % 4
+    w = int(math.fmod(t, 4))   # lax.rem truncates
+    r, w = t % SL, w if w >= 0 else DMA_NEG_SLAB
     out = torch.zeros_like(x)
     out[r] = hbm[w, r]
     return out
@@ -117,13 +127,12 @@ def probe(name, x, aux=None, device="cuda", design="faithful"
     """Probe ``name`` on x, int32 ``(8, 128)``; ``aux`` is smem_scalar's
     int32 table (at least 4 rows; column 0 is read) or dma_row's int32
     ``(64, 8, 128)`` source. Returns int32 ``(8, 128)``. ``design="vec"``
-    launches the redesign (all probes but dma_row)."""
+    launches the redesign: one launch into ``torch.empty``, aux at any
+    alignment."""
     if name not in PROBES:
         raise ValueError(f"unknown probe {name!r}: one of {PROBES}")
     if design not in DESIGNS:
         raise ValueError(f"design is one of {DESIGNS}")
-    if design != "faithful" and name not in VEC_PROBES:
-        raise ValueError(f"{name} has no {design!r} design")
     x = int32(x, "x", (SL, LN))
     if name in AUX_SHAPE:
         if aux is None:
@@ -164,14 +173,15 @@ def inputs(seed=0):
 
 def edges(seed=1):
     """The redesigns' edge inputs, ``{name: [(label, unaligned, (x,) or
-    (x, aux))]}`` on the CPU, for each probe of VEC_PROBES: x[0, 0] = 16,
-    -8, 3, 0, 4 and -4 (stage_store's slot and row hit and miss), x <= 0
+    (x, aux))]}`` on the CPU, for each probe: x[0, 0] = 16, -8, 3, 0, 4
+    and -4 (stage_store's slot and row hit and miss), x <= 0
     everywhere (reduce_pred's 0, cond_vec's -1, minscalar's 99), x > 99
     everywhere (minscalar's least x, above the 99 it puts for x <= 0),
-    int32's extremes in x and the table (every sum wraps), and x one
-    element off
-    16-byte alignment (``unaligned``: made so on the device, the element
-    path); and smem_scalar's table with row stride 3."""
+    int32's extremes in x and the table (every sum wraps), and x (and
+    aux) one element off 16-byte alignment (``unaligned``: made so on the
+    device, the element path); smem_scalar's table with row stride 3;
+    dma_row's x[0, 0] = -1, -2 and -3 (a negative t rem 4: slab
+    DMA_NEG_SLAB), 7 (row 7 of slab 3), INT32_MAX and INT32_MIN."""
     x, aux = inputs(seed)
     rng = np.random.RandomState(seed)
     xs = []
@@ -190,7 +200,7 @@ def edges(seed=1):
     sm_ext = torch.tensor([[INT32_MAX, 1], [INT32_MAX, 2], [5, 3],
                            [INT32_MIN, 4]], dtype=torch.int32)
     cases = {}
-    for name in VEC_PROBES:
+    for name in PROBES:
         cases[name] = [(label, unaligned, (v,)) for label, unaligned, v
                        in xs]
     cases["smem_scalar"] = [
@@ -199,16 +209,26 @@ def edges(seed=1):
         for label, unaligned, v in xs]
     sm3 = tensor(rng.randint(-50, 50, (5, 3)).astype(np.int32))
     cases["smem_scalar"].append(("table row stride 3", False, (x, sm3)))
+    cases["dma_row"] = [(label, unaligned, (v, aux["dma_row"]))
+                        for label, unaligned, v in xs]
+    for x00 in (-1, -2, -3, 7, INT32_MAX, INT32_MIN):
+        v = x.clone()
+        v[0, 0] = x00
+        cases["dma_row"].append((f"x[0, 0] = {x00}", False,
+                                 (v, aux["dma_row"])))
     return cases
 
 
 def nbytes(name) -> int:
-    """x read and out written, and what the probe reads besides."""
-    return 8 * SL * LN + (16 * LN * 4 if name == "dma_row" else 0) + \
-        (16 if name == "smem_scalar" else 0)
+    """What the function must move: x read and out written, and the
+    table's four words (smem_scalar); for dma_row x[0, 0], one source row
+    and out, for either design (the faithful kernel copies 16 rows)."""
+    if name == "dma_row":
+        return 4 + 4 * LN + 4 * SL * LN
+    return 8 * SL * LN + (16 if name == "smem_scalar" else 0)
 
 
-def edge_runs(dev, names=VEC_PROBES) -> list[Record]:
+def edge_runs(dev, names=PROBES) -> list[Record]:
     """The redesigns of ``names`` on their inputs of ``edges()``."""
     records = []
     for name, cases in edges().items():
@@ -231,16 +251,20 @@ def main(argv=(), device="cuda") -> list[Record]:
     floor_out = torch.empty_like(xd)
     runs = {}
     for name in names:
-        for d in DESIGNS if name in VEC_PROBES else DESIGNS[:1]:
+        for d in DESIGNS:
             runs[name, d] = lambda n=name, d=d: probe(n, xd, auxd.get(n),
                                                       dev, d)
     runs["copy_ floor"] = lambda: floor_out.copy_(xd)
     runs["zero fill"] = lambda: torch.zeros((SL, LN), dtype=torch.int32,
                                             device=dev)
+    # while22's function as one PyTorch call (the library row)
+    runs["full 3"] = lambda: torch.full((SL, LN), 3, dtype=torch.int32,
+                                        device=dev)
     outs, times = in_turns(runs, dev, reps=32)
     floor = times["copy_ floor"]
     print(f"copy_ floor (8, 128) int32: {floor * 1e3:.3f} us/call; the "
-          f"output's zero fill {times['zero fill'] * 1e3:.3f} us/call",
+          f"output's zero fill {times['zero fill'] * 1e3:.3f} us/call; "
+          f"torch.full of 3 {times['full 3'] * 1e3:.3f} us/call",
           flush=True)
     records = []
     for (name, d), ms in ((k, v) for k, v in times.items()
@@ -254,7 +278,8 @@ def main(argv=(), device="cuda") -> list[Record]:
         records.append(Record(
             f"p4_{name}" + ("_vec" if d == "vec" else ""), "(8, 128)", ms,
             out, lambda n=name, a=a: probe(n, x, a, "cpu"), nbytes(name),
-            CHAIN[name]))
+            CHAIN[name],
+            library_ms=times["full 3"] if name == "while22" else None))
     return records + edge_runs(dev, names)
 
 

@@ -38,7 +38,7 @@ KERNELS = ("k1_inflate_kernel", "k2_pass1_kernel", "k2_pass2_kernel",
            # P4's redesigns before the faithful names they contain
            "p4_reduce_pred_vec", "p4_cond_vec_vec", "p4_while22_vec",
            "p4_table_rw_vec", "p4_stage_store_vec", "p4_minscalar_vec",
-           "p4_smem_scalar_vec", "p4_u64shift_vec",
+           "p4_smem_scalar_vec", "p4_u64shift_vec", "p4_dma_row_vec",
            "reduce_pred", "cond_vec", "while22", "table_rw", "stage_store",
            "minscalar", "smem_scalar", "u64shift", "dma_row")
 OPS = ("LDG", "LDS", "LDL", "LD", "STG", "STS", "STL", "ST", "ISETP", "SEL",

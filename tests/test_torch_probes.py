@@ -434,11 +434,15 @@ def _mosaic_jax(mp, name, x, aux):
 
 @pytest.mark.parametrize("name,x00", [(n, 16) for n in mosaic_probe.PROBES]
                          + [("stage_store", -8), ("dma_row", 11),
-                            ("cond_vec", 3)])
+                            ("cond_vec", 3)]
+                         + [("dma_row", x00) for x00 in
+                            (-1, -2, -3, -13, mosaic_probe.INT32_MIN,
+                             mosaic_probe.INT32_MAX)])
 def test_mosaic_probe_matches_jax(jax_tool, name, x00):
     """x[0, 0] = 16, -8: stage_store writes stage[0, 0] (other values leave
     it unwritten: INT32_MIN on the TPU side, 0 in the port); dma_row
-    writes one row r = x[0, 0] mod 8, the only row compared."""
+    writes one row r = x[0, 0] mod 8, the only row compared, from slab 48
+    where x[0, 0] rem 4 < 0 (-1, -2, -3, -13)."""
     mp, _ = jax_tool("mosaic_probe")
     x, aux = mosaic_probe.inputs(seed=x00 & 0xFF)
     x = x.numpy().copy()
@@ -474,15 +478,17 @@ def mosaic_twin():
 
 
 def _mosaic_twin(twin, name, x, aux=None, unaligned=False):
-    """P4's redesign of probe ``name`` through its twin on numpy x (4
-    bytes off 16-byte alignment where ``unaligned``: the element path);
-    ``aux`` is smem_scalar's table, any row stride."""
-    x = _placed(np.asarray(x, np.int32), 4 if unaligned else 0)
-    out = _placed(np.full((SL, LN), -7, np.int32), 0)
-    sm = None if aux is None else np.ascontiguousarray(aux, np.int32)
+    """P4's redesign of probe ``name`` through its twin on numpy x, with
+    out pre-filled with -7 (x, aux and out each 4 bytes off 16-byte
+    alignment where ``unaligned``: the element path); ``aux`` is
+    smem_scalar's table, any row stride, or dma_row's source."""
+    off = 4 if unaligned else 0
+    x = _placed(np.asarray(x, np.int32), off)
+    out = _placed(np.full((SL, LN), -7, np.int32), off)
+    sm = None if aux is None else _placed(np.asarray(aux, np.int32), off)
     rc = twin.pm_probe_host(mosaic_probe.PROBES.index(name), x.ctypes.data,
                             None if sm is None else sm.ctypes.data,
-                            0 if sm is None else sm.shape[1],
+                            0 if sm is None else sm.strides[0] // 4,
                             out.ctypes.data)
     assert rc == 0
     return out
@@ -491,6 +497,9 @@ def _mosaic_twin(twin, name, x, aux=None, unaligned=False):
 _MOSAIC_EDGES = mosaic_probe.edges()
 _MOSAIC_EDGE_LABELS = list(dict.fromkeys(
     label for cases in _MOSAIC_EDGES.values() for label, _, _ in cases))
+# the edges of dma_row alone
+_DMA_ROW_LABELS = {f"x[0, 0] = {t}" for t in (
+    -1, -2, -3, 7, mosaic_probe.INT32_MAX, mosaic_probe.INT32_MIN)}
 
 
 @pytest.mark.parametrize("label", _MOSAIC_EDGE_LABELS)
@@ -498,8 +507,9 @@ def test_mosaic_vec_twin_edges(mosaic_twin, label):
     """The twin of each probe that has the card's edge input ``label``
     (mosaic_probe.edges(): x[0, 0] at test_mosaic_probe_matches_jax's
     cases and stage_store's other hits and misses, x <= 0 and x > 99
-    everywhere, int32's extremes, x unaligned, smem_scalar's table with
-    row stride 3) equals PLAIN."""
+    everywhere, int32's extremes, x, aux and out unaligned, smem_scalar's
+    table with row stride 3, dma_row's negative t rem 4, its row 7 of slab
+    3 and t at int32's extremes) equals PLAIN, every element written."""
     ran = []
     for name, cases in _MOSAIC_EDGES.items():
         for lab, unaligned, ins in cases:
@@ -513,7 +523,8 @@ def test_mosaic_vec_twin_edges(mosaic_twin, label):
             np.testing.assert_array_equal(got, want.numpy(), err_msg=name)
             ran.append(name)
     assert ran == (["smem_scalar"] if label == "table row stride 3"
-                   else list(mosaic_probe.VEC_PROBES))
+                   else ["dma_row"] if label in _DMA_ROW_LABELS
+                   else list(mosaic_probe.PROBES))
 
 
 @pytest.mark.parametrize("name,label", [("table_rw", "x[0, 0] = 16"),
@@ -530,15 +541,16 @@ def test_mosaic_vec_twin_matches_jax(jax_tool, mosaic_twin, name, label):
 
 
 def test_mosaic_vec_refusals(mosaic_twin):
-    """dma_row has no redesign: design="vec" raises on any device, as an
-    unknown design does; the twin refuses an unknown probe."""
+    """An unknown design raises on any device; the twin refuses an unknown
+    probe (index 9, past dma_row)."""
     x, aux = mosaic_probe.inputs()
-    with pytest.raises(ValueError, match="dma_row"):
-        mosaic_probe.probe("dma_row", x, aux["dma_row"], "cpu", "vec")
     with pytest.raises(ValueError, match="design"):
         mosaic_probe.probe("minscalar", x, None, "cpu", "wide")
+    with pytest.raises(ValueError, match="design"):
+        mosaic_probe.probe("dma_row", x, aux["dma_row"], "cpu", "wide")
+    assert len(mosaic_probe.PROBES) == 9
     out = np.zeros((SL, LN), np.int32)
-    assert mosaic_twin.pm_probe_host(8, x.numpy().ctypes.data, None, 0,
+    assert mosaic_twin.pm_probe_host(9, x.numpy().ctypes.data, None, 0,
                                      out.ctypes.data) == -1
 
 
@@ -1139,8 +1151,9 @@ def test_sass_summary_finds_loads_in_loops():
 
 def test_sass_names_p4_redesigns():
     """A P4 redesign's mangled name holds its faithful probe's name
-    (p4_reduce_pred_vec, reduce_pred): the summary keeps them apart, and
-    keeps P2's redesign apart from the faithful p2_skel_kernel."""
+    (p4_reduce_pred_vec, reduce_pred; p4_dma_row_vec, dma_row): the summary
+    keeps them apart, and keeps P2's redesign apart from the faithful
+    p2_skel_kernel."""
     listing = """
         Function : _ZN12_GLOBAL__N_118p4_reduce_pred_vecILb1EEEvPKiS2_lPi
         /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
@@ -1149,9 +1162,15 @@ def test_sass_names_p4_redesigns():
         /*0010*/                   STG.E desc[UR4][R6.64], R4 ;
         Function : _ZN12_GLOBAL__N_118p2_skel_vec_kernelILb0EEEvN2ps4ArgsENS0_4GridE
         /*0000*/                   STG.E desc[UR4][R6.64], R4 ;
+        Function : _ZN12_GLOBAL__N_114p4_dma_row_vecILb0EEEvPKiS2_lPi
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        Function : _ZN12_GLOBAL__N_17dma_rowEPKiS1_lPi
+        /*0000*/                   LDS R4, [R2] ;
 """
     got = sass.summarise(listing)
     assert got["p4_reduce_pred_vec<true>"]["insns"] == 1
     assert got["reduce_pred"]["insns"] == 2
+    assert got["p4_dma_row_vec<false>"]["LDG"] == 1
+    assert got["dma_row"]["LDS"] == 1
     assert got["p2_skel_vec_kernel<false>"]["STG"] == 1
     assert "p2_skel_kernel" not in got
