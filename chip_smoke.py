@@ -382,6 +382,14 @@ def timed(fn, device, reps=1):
     return out, best
 
 
+def engine_phases():
+    """A CPU-only ``torch.profiler`` over a call: while one records, the
+    engines time their uploads, kernels and pulls on the card's CUDA
+    events (``upload_ms``, ``k1_ms``..., ``trace_pull_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
 def k1_compare(cases, device, tcap):
     """K1 on ``device`` and its plain version on one batch; returns
     (device results on the CPU, plain results, max abs difference)."""
@@ -816,9 +824,10 @@ def mszip_phases(device, total_mb, edge_frame, reps, clock, bench):
     for pb in ("device", "host"):
         for rep in range(2):
             eng = CudaMszipEngine(device, phase_b=pb)
-            t0 = time.perf_counter()
-            outs = eng.decode_folders(folders)
-            dt = time.perf_counter() - t0
+            with engine_phases():
+                t0 = time.perf_counter()
+                outs = eng.decode_folders(folders)
+                dt = time.perf_counter() - t0
             if outs is None or b"".join(outs) != corpus:
                 raise AssertionError(f"phase_b={pb}: bytes differ")
             if sum(eng.declines.values()):
@@ -1369,9 +1378,10 @@ def oab_phases(device, oab_mb, big_mb, big_block, reps, clock, bench):
         for _ in range(reps):
             d = create_oab_decompressor(engine="cuda", device=device,
                                         strict=True)
-            t0 = time.perf_counter()
-            out = decode(d)
-            runs.append(time.perf_counter() - t0)
+            with engine_phases():
+                t0 = time.perf_counter()
+                out = decode(d)
+                runs.append(time.perf_counter() - t0)
             uploads.append(d.cuda_engine.timings["upload_ms"])
             if out != want:
                 raise AssertionError(f"OAB {name}: bytes differ")
@@ -1655,9 +1665,10 @@ def corpus_phases(device, paths, want, bench, reps, counts, clock):
     want_m = bench["mszip"]["corpus"]
     for pb in ("host", "device", "device", "host"):
         eng = CudaMszipEngine(device, phase_b=pb)
-        t0 = time.perf_counter()
-        outs, got = counts.run(lambda: eng.decode_folders(folders))
-        dt = time.perf_counter() - t0
+        with engine_phases():
+            t0 = time.perf_counter()
+            outs, got = counts.run(lambda: eng.decode_folders(folders))
+            dt = time.perf_counter() - t0
         if outs is None or b"".join(outs) != want_m or \
                 sum(eng.declines.values()):
             raise AssertionError(f"corpus B phase_b={pb}: bytes or "

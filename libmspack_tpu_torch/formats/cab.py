@@ -49,6 +49,12 @@ are the reference driver's. Engines:
 
 The JAX package's ``"jax"`` and ``"tpu"`` engines are the port's
 ``"torch"`` and ``"cuda"``.
+
+Spans (``tracing``): ``mspack.cab.open`` and ``mspack.cab.extract`` around
+the two calls; inside them ``mspack.cab.parse`` (the header and file walk),
+``mspack.cab.collect`` (a folder's CFDATA blocks read and checked for the
+CUDA engine) and ``mspack.cab.write`` (a file's bytes into its sink from
+the decoded folder).
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ from ..errors import (ArgsError, ChecksumError, DataFormatError, DecrunchError,
                       MSPackError, ReadError, SignatureError)
 from ..system import (FileSink, PathOrBytes, Sink, open_source, read_exact,
                       source_length)
+from ..tracing import span, spanned
 
 # structure sizes / offsets (reference: cab.h:15-45)
 CFHEAD_SIZEOF = 0x24
@@ -282,9 +289,11 @@ class CabDecompressor:
     # -- open / headers --------------------------------------------------
 
     def open(self, path: PathOrBytes) -> Cabinet:
-        src = open_source(path)
-        cab = Cabinet(path)
-        self._read_headers(src, cab, 0, quiet=False)
+        with span("mspack.cab.open"):
+            src = open_source(path)
+            cab = Cabinet(path)
+            with span("mspack.cab.parse"):
+                self._read_headers(src, cab, 0, quiet=False)
         return cab
 
     def close(self, cab: Cabinet) -> None:
@@ -615,6 +624,7 @@ class CabDecompressor:
 
     # -- extract ---------------------------------------------------------
 
+    @spanned("mspack.cab.extract")
     def extract(self, file: CabFile, output) -> None:
         """reference: cabd.c:1075-1214."""
         if file is None:
@@ -664,8 +674,9 @@ class CabDecompressor:
                     file.offset + filelen <= len(folder_bytes):
                 sink = output if isinstance(output, Sink) else FileSink(output)
                 try:
-                    sink.write(folder_bytes[file.offset:
-                                            file.offset + filelen])
+                    with span("mspack.cab.write"):
+                        sink.write(folder_bytes[file.offset:
+                                                file.offset + filelen])
                     return
                 finally:
                     if sink is not output and hasattr(sink, "close"):
@@ -863,8 +874,9 @@ class CabDecompressor:
         an MSZIP folder the engine re-decoded on the host, is noted in
         ``fallback_reasons`` and raises ``FallbackError`` under strict."""
         path = self._CUDA_PATHS[ct][0]
-        collected = (self.collect_mszip_frames if ct == COMPTYPE_MSZIP
-                     else self.collect_raw_blocks)(fol)
+        with span("mspack.cab.collect"):
+            collected = (self.collect_mszip_frames if ct == COMPTYPE_MSZIP
+                         else self.collect_raw_blocks)(fol)
         if collected is None:
             note_fallback(self, path, "CFDATA blocks could not be collected")
             return None

@@ -51,6 +51,12 @@ The JAX package's ``"jax"`` and ``"tpu"`` engines are the port's
 ``"torch"`` and ``"cuda"``. Its ``tpu`` engine declines windows above 2^18
 to the host; the port serves them on K3, held to the JAX ``scalar`` path's
 bytes.
+
+Spans (``tracing``): ``mspack.oab.decompress`` around ``decompress``;
+inside it, under ``engine="cuda"``, ``mspack.oab.read`` (the read-ahead)
+and ``mspack.oab.write`` (the batch's blocks written in file order with
+their CRC checks, whose host time is ``timings["crc_ms"]``), once a
+batch.
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ from ..errors import (ArgsError, ChecksumError, DataFormatError, ReadError,
 from ..ops.crc32 import crc32_raw
 from ..system import (BytesSink, FileSink, PathOrBytes, Sink, open_source,
                       read_exact)
+from ..tracing import add_ms, span, spanned
 
 OABHEAD_SIZEOF = 0x10
 OABBLK_SIZEOF = 0x10
@@ -114,6 +121,7 @@ class OabDecompressor:
 
     # -- full download ---------------------------------------------------
 
+    @spanned("mspack.oab.decompress")
     def decompress(self, input_: PathOrBytes, output) -> None:
         """reference: oabd.c:103-232."""
         src = open_source(input_)
@@ -211,12 +219,14 @@ class OabDecompressor:
         then stand at the first block it did not take, for the reference
         loop."""
         while target_size:
-            blocks, stopped = self._read_ahead(src, basesrc, block_max,
-                                               target_size)
+            with span("mspack.oab.read"):
+                blocks, stopped = self._read_ahead(src, basesrc, block_max,
+                                                   target_size)
             outs = self._decode_batch(blocks)
-            for blk, out in zip(blocks, outs):
-                self._write_block(sink, blk, out)
-                target_size -= blk.dsize
+            with span("mspack.oab.write"):
+                for blk, out in zip(blocks, outs):
+                    self._write_block(sink, blk, out)
+                    target_size -= blk.dsize
             if stopped or not blocks:
                 break
         return target_size
@@ -309,8 +319,7 @@ class OabDecompressor:
         if out is not None:
             t0 = time.perf_counter()
             crc = crc32_raw(out)
-            self.timings["crc_ms"] = self.timings.get("crc_ms", 0.0) + \
-                (time.perf_counter() - t0) * 1e3
+            add_ms(self.timings, "crc_ms", t0)
             sink.write(out)
             if crc != blk.crc:
                 raise ChecksumError("OAB block CRC mismatch")
@@ -409,8 +418,7 @@ class OabDecompressor:
             return False
         t0 = time.perf_counter()
         ok = crc32_raw(out) == crc
-        self.timings["crc_ms"] = self.timings.get("crc_ms", 0.0) + \
-            (time.perf_counter() - t0) * 1e3
+        add_ms(self.timings, "crc_ms", t0)
         if not ok:
             raise ChecksumError("OAB block CRC mismatch")
         sink.write(out)

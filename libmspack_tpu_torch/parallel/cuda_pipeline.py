@@ -23,6 +23,13 @@ semantics; a folder above the trace budget goes there directly. Every
 such decline is counted in ``declines`` by reason.
 
 With ``device="cpu"`` the same pipelines run the kernels' plain versions.
+
+Each engine call is the span ``mspack.engine.decode`` (``timings`` key
+``total_ms``); inside it, per launch, ``mspack.engine.pack`` (pack,
+tensors, upload and the kernel's launch), ``.wait`` (the counts pull, where
+the host blocks on the kernel), ``.pull`` (the trace or byte pulls),
+``.resolve`` (host phase B, ``host_resolve_ms``) and ``.copy_out`` (the
+bytes copied into each stream's or folder's own buffer).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..ops import cuda_inflate as ci
 from ..ops import cuda_lzx as cl
 from ..ops import cuda_qtm as cq
 from ..ops import cuda_resolve as cr
+from ..tracing import recording, span, spanned
 
 FRAME_MAX = ci.FRAME_MAX
 # Device memory for one launch's trace: tok + litw are 8 bytes per token,
@@ -99,7 +107,14 @@ def segment_targets(totals, seg):
 
 
 class _Engine:
-    """Device, decline counts and phase timings shared by the engines."""
+    """Device, decline counts and phase timings shared by the engines.
+
+    ``timings`` (ms, summed over calls): ``total_ms`` and
+    ``host_resolve_ms`` on the host clock, always; ``upload_ms``, the
+    kernels' ``k1_ms``/``k2_ms``/``k3_ms``/``k4_ms``, ``trace_pull_ms``
+    and ``bytes_pull_ms`` on CUDA events, which the card records only
+    while a ``torch.profiler`` records (the CPU times them on the host
+    clock always)."""
 
     def __init__(self, device):
         self.device = resolve_device(device)
@@ -108,17 +123,24 @@ class _Engine:
         self.timings: dict[str, float] = {}
         self._streams = None
 
-    # -- timing: CUDA events on the card, the host clock on the CPU ------
+    # -- timing: CUDA events on the card while a profiler records, the
+    # host clock on the CPU ---------------------------------------------
 
     def _mark(self):
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        if not recording():
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
 
-    def _add(self, name, a, b, host=False):
-        if host or self.device.type != "cuda":
+    def _add(self, name, a, b):
+        """Adds the time between marks ``a`` and ``b``; nothing where
+        either was taken with no profiler recording."""
+        if a is None or b is None:
+            return
+        if self.device.type != "cuda":
             ms = (b - a) * 1e3
         else:
             # an event recorded just after a synchronous pull may not have
@@ -126,6 +148,12 @@ class _Engine:
             b.synchronize()
             ms = a.elapsed_time(b)
         self.timings[name] = self.timings.get(name, 0.0) + ms
+
+    @staticmethod
+    def _wait(cnt):
+        """The counts on the host, once the kernel has written them."""
+        with span("mspack.engine.wait"):
+            return cnt.cpu().numpy()
 
     def _on(self, k):
         """The stream of launch slot k (two, alternating), as a context."""
@@ -151,13 +179,13 @@ class CudaMszipEngine(_Engine):
 
     # -- public ----------------------------------------------------------
 
+    @spanned("mspack.engine.decode", "total_ms")
     def decode_folders(self, folders, n_threads=None, per_folder=False):
         """folders: [(frames without 'CK', sizes)] as native.mszip_folders
         takes them. Returns the bytes of each folder, or None when a
         flagged folder fails its native re-decode as well (the caller's
         scalar path then raises the reference's error); with
         ``per_folder`` always the list, None only in such folders."""
-        t0 = time.perf_counter()
         offsets = np.zeros(len(folders) + 1, np.int64)
         np.cumsum([sum(s) for _, s in folders], out=offsets[1:])
         n = int(offsets[-1])
@@ -178,7 +206,6 @@ class CudaMszipEngine(_Engine):
                              n_threads)
         for h in inflight:
             self._finish(h, folders, out, offsets, failed, n_threads)
-        self._add("total_ms", t0, time.perf_counter(), host=True)
         self.redecoded = sorted(failed)
         lost = set()
         for fi in self.redecoded:
@@ -189,8 +216,10 @@ class CudaMszipEngine(_Engine):
                 lost.add(fi)
                 continue
             out[offsets[fi]:offsets[fi + 1]] = np.frombuffer(blob, np.uint8)
-        return [None if i in lost else out[offsets[i]:offsets[i + 1]].tobytes()
-                for i in range(len(folders))]
+        with span("mspack.engine.copy_out"):
+            return [None if i in lost
+                    else out[offsets[i]:offsets[i + 1]].tobytes()
+                    for i in range(len(folders))]
 
     # -- batching --------------------------------------------------------
 
@@ -216,22 +245,23 @@ class CudaMszipEngine(_Engine):
 
     def _launch(self, k, batch, folders):
         """Pack, upload and launch K1 for one batch; nothing waits."""
-        frames = [f for fi in batch for f in folders[fi][0]]
-        sizes = [s for fi in batch for s in folders[fi][1]]
-        # history: 0 for a folder's first frame, 32768 for the rest
-        hists = [0 if j == 0 else FRAME_MAX
-                 for fi in batch for j in range(len(folders[fi][0]))]
-        streams, lens = ci.pack_streams(frames)
-        hist_t = torch.tensor(hists, dtype=torch.int32)
-        tcap = max(1, max(sizes))
-        with self._on(k):
-            e0 = self._mark()
-            streams, lens, hist_t = (t.to(self.device)
-                                     for t in (streams, lens, hist_t))
-            e1 = self._mark()
-            tok, litw, cnt = ci.inflate_phase_a(streams, lens, hist_t,
-                                                tcap=tcap)
-            e2 = self._mark()
+        with span("mspack.engine.pack"):
+            frames = [f for fi in batch for f in folders[fi][0]]
+            sizes = [s for fi in batch for s in folders[fi][1]]
+            # history: 0 for a folder's first frame, 32768 for the rest
+            hists = [0 if j == 0 else FRAME_MAX
+                     for fi in batch for j in range(len(folders[fi][0]))]
+            streams, lens = ci.pack_streams(frames)
+            hist_t = torch.tensor(hists, dtype=torch.int32)
+            tcap = max(1, max(sizes))
+            with self._on(k):
+                e0 = self._mark()
+                streams, lens, hist_t = (t.to(self.device)
+                                         for t in (streams, lens, hist_t))
+                e1 = self._mark()
+                tok, litw, cnt = ci.inflate_phase_a(streams, lens, hist_t,
+                                                    tcap=tcap)
+                e2 = self._mark()
         return dict(k=k, batch=batch, sizes=sizes, tok=tok, litw=litw,
                     cnt=cnt, marks=(e0, e1, e2))
 
@@ -239,7 +269,7 @@ class CudaMszipEngine(_Engine):
 
     def _finish(self, h, folders, out, offsets, failed, n_threads):
         with self._on(h["k"]):
-            cnt = h["cnt"].cpu().numpy()
+            cnt = self._wait(h["cnt"])
             e0, e1, e2 = h["marks"]
             self._add("upload_ms", e0, e1)
             self._add("k1_ms", e1, e2)
@@ -278,34 +308,34 @@ class CudaMszipEngine(_Engine):
                       n_threads):
         tmax = max(1, int(max(cnt[2, l0:l0 + nf].max()
                               for _, l0, nf in runs)))
-        e0 = self._mark()
-        tok = h["tok"][:, :tmax].contiguous().cpu().numpy()
-        litw = h["litw"][:, :tmax].contiguous().cpu().numpy()
-        e1 = self._mark()
-        self._add("trace_pull_ms", e0, e1)
-        t0 = time.perf_counter()
-        # the good folders of a batch are consecutive unless one between
-        # them failed; resolve straight into place when they are
-        starts = [int(offsets[fi]) for fi, _, _ in runs]
-        ends = [int(offsets[fi + 1]) for fi, _, _ in runs]
-        if all(s == e for s, e in zip(starts[1:], ends)):
-            target = out[starts[0]:ends[-1]]
-        else:
-            target = np.empty(sum(e - s for s, e in zip(starts, ends)),
-                              np.uint8)
-        rel = np.concatenate([[0], np.cumsum([e - s for s, e in
-                                              zip(starts, ends)])])
-        fsizes = [int(s) for _, l0, nf in runs for s in sizes[l0:l0 + nf]]
-        r = native.resolve_traces(tok, litw, [l0 for _, l0, _ in runs],
-                                  [nf for _, _, nf in runs], fsizes, target,
-                                  [int(x) for x in rel], n_threads)
-        if r != 0:
-            self.declines["host resolve error"] += 1
-            failed.update(fi for fi, _, _ in runs)
-        elif target.base is not out:
-            for i, (s, e) in enumerate(zip(starts, ends)):
-                out[s:e] = target[rel[i]:rel[i + 1]]
-        self._add("host_resolve_ms", t0, time.perf_counter(), host=True)
+        with span("mspack.engine.pull"):
+            e0 = self._mark()
+            tok = h["tok"][:, :tmax].contiguous().cpu().numpy()
+            litw = h["litw"][:, :tmax].contiguous().cpu().numpy()
+            self._add("trace_pull_ms", e0, self._mark())
+        with span("mspack.engine.resolve", self.timings, "host_resolve_ms"):
+            # the good folders of a batch are consecutive unless one between
+            # them failed; resolve straight into place when they are
+            starts = [int(offsets[fi]) for fi, _, _ in runs]
+            ends = [int(offsets[fi + 1]) for fi, _, _ in runs]
+            if all(s == e for s, e in zip(starts[1:], ends)):
+                target = out[starts[0]:ends[-1]]
+            else:
+                target = np.empty(sum(e - s for s, e in zip(starts, ends)),
+                                  np.uint8)
+            rel = np.concatenate([[0], np.cumsum([e - s for s, e in
+                                                  zip(starts, ends)])])
+            fsizes = [int(s) for _, l0, nf in runs for s in sizes[l0:l0 + nf]]
+            r = native.resolve_traces(tok, litw, [l0 for _, l0, _ in runs],
+                                      [nf for _, _, nf in runs], fsizes,
+                                      target, [int(x) for x in rel],
+                                      n_threads)
+            if r != 0:
+                self.declines["host resolve error"] += 1
+                failed.update(fi for fi, _, _ in runs)
+            elif target.base is not out:
+                for i, (s, e) in enumerate(zip(starts, ends)):
+                    out[s:e] = target[rel[i]:rel[i + 1]]
 
     def _resolve_device(self, h, runs, sizes, out, offsets, failed):
         n = len(sizes)
@@ -318,17 +348,19 @@ class CudaMszipEngine(_Engine):
         ob, counts = cr.resolve_frames_device(h["tok"], h["litw"],
                                               h["cnt"][2], lens, flags)
         e1 = self._mark()
-        counts = counts.cpu().numpy()
+        counts = self._wait(counts)
         host = torch.from_numpy(out)
         pos = 0
-        for fi, l0, nf in runs:
-            size = int(offsets[fi + 1] - offsets[fi])
-            if not np.array_equal(counts[l0:l0 + nf], lens[l0:l0 + nf]):
-                self.declines["device resolve count mismatch"] += 1
-                failed.add(fi)
-            else:
-                host[offsets[fi]:offsets[fi + 1]].copy_(ob[pos:pos + size])
-            pos += size
+        with span("mspack.engine.pull"):
+            for fi, l0, nf in runs:
+                size = int(offsets[fi + 1] - offsets[fi])
+                if not np.array_equal(counts[l0:l0 + nf], lens[l0:l0 + nf]):
+                    self.declines["device resolve count mismatch"] += 1
+                    failed.add(fi)
+                else:
+                    host[offsets[fi]:offsets[fi + 1]].copy_(
+                        ob[pos:pos + size])
+                pos += size
         e2 = self._mark()
         self._add("k2_ms", e0, e1)
         self._add("bytes_pull_ms", e1, e2)
@@ -356,9 +388,7 @@ class _StreamEngine(_Engine):
         self.lanes = 0       # lanes launched
 
     def _run(self, job):
-        """Every batch of the plan, two-deep; False on the first decline.
-        Adds ``total_ms``."""
-        t0 = time.perf_counter()
+        """Every batch of the plan, two-deep; False on the first decline."""
         ok = True
         inflight = []
         for k, (idxs, seg) in enumerate(self._plan(job["out_lens"])):
@@ -374,7 +404,6 @@ class _StreamEngine(_Engine):
                 break
         while ok and inflight:
             ok = self._finish(inflight.pop(0), job)
-        self._add("total_ms", t0, time.perf_counter(), host=True)
         return ok
 
     def _plan(self, out_lens):
@@ -412,19 +441,19 @@ class _StreamEngine(_Engine):
         return True
 
     def _pull(self, tok, litw, ntok):
-        e0 = self._mark()
-        tmax = max(1, int(ntok.max()))
-        tok = tok[:, :tmax].contiguous().cpu().numpy()
-        litw = litw[:, :tmax].contiguous().cpu().numpy()
-        self._add("trace_pull_ms", e0, self._mark())
+        with span("mspack.engine.pull"):
+            e0 = self._mark()
+            tmax = max(1, int(ntok.max()))
+            tok = tok[:, :tmax].contiguous().cpu().numpy()
+            litw = litw[:, :tmax].contiguous().cpu().numpy()
+            self._add("trace_pull_ms", e0, self._mark())
         return tok, litw
 
     def _resolve(self, tok, litw, sizes, iflags, ifszs, hists, job):
         """``resolve_lzx``, timed; a resolver error is a decline."""
-        t0 = time.perf_counter()
-        parts = resolve_lzx(tok, litw, sizes, iflags, ifszs,
-                            job["window_bits"], hists, job["n_threads"])
-        self._add("host_resolve_ms", t0, time.perf_counter(), host=True)
+        with span("mspack.engine.resolve", self.timings, "host_resolve_ms"):
+            parts = resolve_lzx(tok, litw, sizes, iflags, ifszs,
+                                job["window_bits"], hists, job["n_threads"])
         if parts is None:
             self.declines["host resolve error"] += 1
         return parts
@@ -450,6 +479,7 @@ class CudaLzxEngine(_StreamEngine):
     blocks are) it always returns the list, None only in the lanes that
     declined. Every decline is counted in ``declines``, once a launch."""
 
+    @spanned("mspack.engine.decode", "total_ms")
     def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
                        decline_on_intel=False, is_delta=False, refs=None,
                        per_lane=False):
@@ -490,17 +520,18 @@ class CudaLzxEngine(_StreamEngine):
 
     def _launch(self, k, idxs, job):
         """Pack, upload and launch K3 for one batch; nothing waits."""
-        sizes = [int(job["out_lens"][i]) for i in idxs]
-        targets = torch.tensor(sizes, dtype=torch.int32)
-        with self._on(k):
-            e0 = self._mark()
-            streams, lens, budgets = self._upload(idxs, job)
-            targets = targets.to(self.device)
-            e1 = self._mark()
-            tok, litw, cnt = cl.lzx_phase_a(
-                streams, lens, targets, budgets, job["window_bits"],
-                is_delta=job["is_delta"], tcap=max(1, max(sizes)))
-            e2 = self._mark()
+        with span("mspack.engine.pack"):
+            sizes = [int(job["out_lens"][i]) for i in idxs]
+            targets = torch.tensor(sizes, dtype=torch.int32)
+            with self._on(k):
+                e0 = self._mark()
+                streams, lens, budgets = self._upload(idxs, job)
+                targets = targets.to(self.device)
+                e1 = self._mark()
+                tok, litw, cnt = cl.lzx_phase_a(
+                    streams, lens, targets, budgets, job["window_bits"],
+                    is_delta=job["is_delta"], tcap=max(1, max(sizes)))
+                e2 = self._mark()
         self.lanes += len(idxs)
         return dict(k=k, idxs=idxs, sizes=sizes, tok=tok, litw=litw,
                     cnt=cnt, marks=(e0, e1, e2))
@@ -533,7 +564,7 @@ class CudaLzxEngine(_StreamEngine):
         idxs, sizes = h["idxs"], h["sizes"]
         n = len(idxs)
         with self._on(h["k"]):
-            cnt = h["cnt"].cpu().numpy()[:, :n]
+            cnt = self._wait(h["cnt"])[:, :n]
             e0, e1, e2 = h["marks"]
             self._add("upload_ms", e0, e1)
             self._add("k3_ms", e1, e2)
@@ -557,8 +588,9 @@ class CudaLzxEngine(_StreamEngine):
                                   [int(v) for v in cnt[5, good]], hists, job)
         if parts is None:
             return job["per_lane"]
-        for part, i in zip(parts, lanes):
-            job["outs"][i] = part.tobytes()
+        with span("mspack.engine.copy_out"):
+            for part, i in zip(parts, lanes):
+                job["outs"][i] = part.tobytes()
         self.n_decoded += len(good)
         return True
 
@@ -571,9 +603,10 @@ class CudaLzxEngine(_StreamEngine):
         totals = np.array([int(job["out_lens"][i]) for i in idxs])
         parts = [np.empty(int(t), np.uint8) for t in totals]
         tails = self._tails(idxs, job)
-        e0 = self._mark()
-        streams, lens, budgets = self._upload(idxs, job)
-        self._add("upload_ms", e0, self._mark())
+        with span("mspack.engine.pack"):
+            e0 = self._mark()
+            streams, lens, budgets = self._upload(idxs, job)
+            self._add("upload_ms", e0, self._mark())
         self.lanes += n
         state = None
         cnt = None
@@ -584,7 +617,7 @@ class CudaLzxEngine(_StreamEngine):
                 torch.tensor(targets, dtype=torch.int32).to(self.device),
                 budgets, job["window_bits"], is_delta=job["is_delta"],
                 tcap=seg, state=state, return_state=True)
-            cnt = cnt.cpu().numpy()
+            cnt = self._wait(cnt)
             self._add("k3_ms", e0, self._mark())
             if not self._counts_ok(cnt, pos < totals, targets):
                 return False
@@ -593,17 +626,19 @@ class CudaLzxEngine(_StreamEngine):
                                 tails, job)
             if got is None:
                 return False
-            for j in range(n):
-                if targets[j] > pos[j]:
-                    parts[j][pos[j]:targets[j]] = got[j]
-                    tails[j] = np.concatenate([tails[j], got[j]])[
-                        -len(tails[j]):]
+            with span("mspack.engine.copy_out"):
+                for j in range(n):
+                    if targets[j] > pos[j]:
+                        parts[j][pos[j]:targets[j]] = got[j]
+                        tails[j] = np.concatenate([tails[j], got[j]])[
+                            -len(tails[j]):]
         if self._intel_lanes(cnt[:, :n], job).any():
             return False
-        for j, i in enumerate(idxs):
-            if cnt[4, j] and cnt[5, j]:
-                native.e8_decode_buf(parts[j], int(cnt[5, j]), 0)
-            job["outs"][i] = parts[j].tobytes()
+        with span("mspack.engine.copy_out"):
+            for j, i in enumerate(idxs):
+                if cnt[4, j] and cnt[5, j]:
+                    native.e8_decode_buf(parts[j], int(cnt[5, j]), 0)
+                job["outs"][i] = parts[j].tobytes()
         self.n_decoded += n
         return True
 
@@ -643,6 +678,7 @@ class CudaQtmEngine(_StreamEngine):
     launch. ``wrap_spans`` holds, per stream of the last call, the
     ``wrap_spans`` of its matches that crossed a window lap end."""
 
+    @spanned("mspack.engine.decode", "total_ms")
     def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
                        per_lane=False):
         """streams: list of bytes; out_lens: their decoded sizes."""
@@ -669,17 +705,18 @@ class CudaQtmEngine(_StreamEngine):
 
     def _launch(self, k, idxs, job):
         """Pack, upload and launch K4 for one batch; nothing waits."""
-        sizes = [int(job["out_lens"][i]) for i in idxs]
-        targets = torch.tensor(sizes, dtype=torch.int32)
-        with self._on(k):
-            e0 = self._mark()
-            streams, lens = self._upload(idxs, job)
-            targets = targets.to(self.device)
-            e1 = self._mark()
-            tok, litw, cnt = cq.qtm_phase_a(streams, lens, targets,
-                                            job["window_bits"],
-                                            tcap=max(1, max(sizes)))
-            e2 = self._mark()
+        with span("mspack.engine.pack"):
+            sizes = [int(job["out_lens"][i]) for i in idxs]
+            targets = torch.tensor(sizes, dtype=torch.int32)
+            with self._on(k):
+                e0 = self._mark()
+                streams, lens = self._upload(idxs, job)
+                targets = targets.to(self.device)
+                e1 = self._mark()
+                tok, litw, cnt = cq.qtm_phase_a(streams, lens, targets,
+                                                job["window_bits"],
+                                                tcap=max(1, max(sizes)))
+                e2 = self._mark()
         self.lanes += len(idxs)
         return dict(k=k, idxs=idxs, sizes=sizes, tok=tok, litw=litw,
                     cnt=cnt, marks=(e0, e1, e2))
@@ -701,7 +738,7 @@ class CudaQtmEngine(_StreamEngine):
         idxs, sizes = h["idxs"], h["sizes"]
         n = len(idxs)
         with self._on(h["k"]):
-            cnt = h["cnt"].cpu().numpy()[:, :n]
+            cnt = self._wait(h["cnt"])[:, :n]
             e0, e1, e2 = h["marks"]
             self._add("upload_ms", e0, e1)
             self._add("k4_ms", e1, e2)
@@ -721,10 +758,11 @@ class CudaQtmEngine(_StreamEngine):
                                   job)
         if parts is None:
             return job["per_lane"]
-        for r, j in enumerate(good):
-            self._note_wraps(idxs[j], tok[r], cnt[:, j], 0,
-                             job["window_bits"])
-            job["outs"][idxs[j]] = parts[r].tobytes()
+        with span("mspack.engine.copy_out"):
+            for r, j in enumerate(good):
+                self._note_wraps(idxs[j], tok[r], cnt[:, j], 0,
+                                 job["window_bits"])
+                job["outs"][idxs[j]] = parts[r].tobytes()
         self.n_decoded += len(good)
         return True
 
@@ -737,9 +775,10 @@ class CudaQtmEngine(_StreamEngine):
         totals = np.array([int(job["out_lens"][i]) for i in idxs])
         parts = [np.empty(int(t), np.uint8) for t in totals]
         tails = window_tails([b""] * n, wb)
-        e0 = self._mark()
-        streams, lens = self._upload(idxs, job)
-        self._add("upload_ms", e0, self._mark())
+        with span("mspack.engine.pack"):
+            e0 = self._mark()
+            streams, lens = self._upload(idxs, job)
+            self._add("upload_ms", e0, self._mark())
         self.lanes += n
         state = None
         for pos, targets in segment_targets(totals, seg):
@@ -748,7 +787,7 @@ class CudaQtmEngine(_StreamEngine):
                 streams, lens,
                 torch.tensor(targets, dtype=torch.int32).to(self.device),
                 wb, tcap=seg, state=state, return_state=True)
-            cnt = cnt.cpu().numpy()
+            cnt = self._wait(cnt)
             self._add("k4_ms", e0, self._mark())
             if not self._counts_ok(cnt, pos < totals, targets):
                 return False
@@ -757,13 +796,15 @@ class CudaQtmEngine(_StreamEngine):
                                 tails, job)
             if got is None:
                 return False
+            with span("mspack.engine.copy_out"):
+                for j, i in enumerate(idxs):
+                    if targets[j] > pos[j]:
+                        self._note_wraps(i, tok[j], cnt[:, j], pos[j], wb)
+                        parts[j][pos[j]:targets[j]] = got[j]
+                        tails[j] = np.concatenate([tails[j], got[j]])[
+                            -len(tails[j]):]
+        with span("mspack.engine.copy_out"):
             for j, i in enumerate(idxs):
-                if targets[j] > pos[j]:
-                    self._note_wraps(i, tok[j], cnt[:, j], pos[j], wb)
-                    parts[j][pos[j]:targets[j]] = got[j]
-                    tails[j] = np.concatenate([tails[j], got[j]])[
-                        -len(tails[j]):]
-        for j, i in enumerate(idxs):
-            job["outs"][i] = parts[j].tobytes()
+                job["outs"][i] = parts[j].tobytes()
         self.n_decoded += n
         return True

@@ -39,6 +39,10 @@ Copied from ``libmspack_tpu/parallel/planner.py``. Besides the imports:
   CFDATA collect and each route), ``engines`` and ``calls`` (the CUDA
   engine and its calls per codec); ``archive_files`` is the last step of
   ``extract_corpus`` on its own.
+* spans (``tracing``): ``mspack.planner.plan``, ``.execute`` and ``.files``
+  around the three steps; inside them ``mspack.planner.parse`` and
+  ``.collect`` once an archive (``parse_ms``, ``collect_ms``) and
+  ``mspack.planner.join``, the joining of the stream jobs' blocks.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from .._device import (new_declines, note_fallback, reason_text,
 from ..errors import ArgsError
 from ..formats.cab import COMPTYPE_MASK, CabDecompressor, Cabinet
 from ..system import BytesSink, PathOrBytes
+from ..tracing import add_ms, span, spanned
 
 CODECS = ("mszip", "lzx", "quantum")
 _CODEC_OF = {1: "mszip", 2: "quantum", 3: "lzx"}   # comp_type & 0xF
@@ -96,10 +101,7 @@ class Plan:
     strict: bool = False
 
 
-def _ms(timings, name, t0):
-    timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-
-
+@spanned("mspack.planner.plan")
 def plan_archives(paths: List[PathOrBytes]) -> Plan:
     """Parse every archive on host and build the decode job list."""
     cabinets = []
@@ -108,42 +110,40 @@ def plan_archives(paths: List[PathOrBytes]) -> Plan:
     timings = {"parse_ms": 0.0, "collect_ms": 0.0}
     d = CabDecompressor(engine="scalar")
     for ai, path in enumerate(paths):
-        t0 = time.perf_counter()
-        cab = d.open(path)
-        _ms(timings, "parse_ms", t0)
-        t0 = time.perf_counter()
+        with span("mspack.planner.parse", timings, "parse_ms"):
+            cab = d.open(path)
         cabinets.append(cab)
-        for fi, fol in enumerate(cab.folders):
-            ct = fol.comp_type & COMPTYPE_MASK
-            if ct == 1:
-                collected = d.collect_mszip_frames(fol)
-                if collected is None:
+        with span("mspack.planner.collect", timings, "collect_ms"):
+            for fi, fol in enumerate(cab.folders):
+                ct = fol.comp_type & COMPTYPE_MASK
+                if ct == 1:
+                    collected = d.collect_mszip_frames(fol)
+                    if collected is None:
+                        fallback.append((ai, fi))
+                        continue
+                    frames, sizes = collected
+                    jobs.append(FolderJob(ai, fi, "mszip",
+                                          [f[2:] for f in frames], None, sizes,
+                                          fol.comp_type))
+                elif ct in (2, 3):
+                    collected = d.collect_raw_blocks(fol)
+                    if collected is None:
+                        fallback.append((ai, fi))
+                        continue
+                    blocks, sizes = collected
+                    jobs.append(FolderJob(ai, fi,
+                                          "lzx" if ct == 3 else "quantum",
+                                          None, blocks, sizes, fol.comp_type))
+                elif ct == 0:
+                    collected = d.collect_raw_blocks(fol)
+                    if collected is None:
+                        fallback.append((ai, fi))
+                        continue
+                    blocks, sizes = collected
+                    jobs.append(FolderJob(ai, fi, "none", None, blocks, sizes,
+                                          fol.comp_type))
+                else:
                     fallback.append((ai, fi))
-                    continue
-                frames, sizes = collected
-                jobs.append(FolderJob(ai, fi, "mszip",
-                                      [f[2:] for f in frames], None, sizes,
-                                      fol.comp_type))
-            elif ct in (2, 3):
-                collected = d.collect_raw_blocks(fol)
-                if collected is None:
-                    fallback.append((ai, fi))
-                    continue
-                blocks, sizes = collected
-                jobs.append(FolderJob(ai, fi,
-                                      "lzx" if ct == 3 else "quantum",
-                                      None, blocks, sizes, fol.comp_type))
-            elif ct == 0:
-                collected = d.collect_raw_blocks(fol)
-                if collected is None:
-                    fallback.append((ai, fi))
-                    continue
-                blocks, sizes = collected
-                jobs.append(FolderJob(ai, fi, "none", None, blocks, sizes,
-                                      fol.comp_type))
-            else:
-                fallback.append((ai, fi))
-        _ms(timings, "collect_ms", t0)
     return Plan(paths, cabinets, jobs, fallback, timings)
 
 
@@ -252,11 +252,12 @@ def _cuda_streams(plan, codec, jobs, results, dev, n_threads):
         groups[j.window_bits].append(j)
     for wb, group in sorted(groups.items()):
         before = dict(eng.declines)
-        if lzx:
-            streams = [b"".join(j.blocks) for j in group]
-        else:
-            streams = [b"".join(b + b"\xff" for b in j.blocks)
-                       for j in group]
+        with span("mspack.planner.join"):
+            if lzx:
+                streams = [b"".join(j.blocks) for j in group]
+            else:
+                streams = [b"".join(b + b"\xff" for b in j.blocks)
+                           for j in group]
         outs = eng.decode_streams(streams, [j.out_len for j in group], wb,
                                   n_threads, per_lane=True)
         plan.calls[codec] += 1
@@ -276,6 +277,7 @@ def _cuda_streams(plan, codec, jobs, results, dev, n_threads):
               declined)
 
 
+@spanned("mspack.planner.execute")
 def execute(plan: Plan, n_threads: int | None = None,
             errors: dict | None = None, engine: str = "cuda",
             device="cuda", strict=None) -> dict:
@@ -318,7 +320,7 @@ def execute(plan: Plan, n_threads: int | None = None,
     t0 = time.perf_counter()
     if "native" in routes.values():
         _native_archive_pipelines(plan, results, n_threads, routes)
-    _ms(plan.timings, "native_ms", t0)
+    add_ms(plan.timings, "native_ms", t0)
 
     def todo(codec):
         return [j for j in plan.jobs
@@ -328,12 +330,12 @@ def execute(plan: Plan, n_threads: int | None = None,
     if routes["mszip"] == "cuda" and todo("mszip"):
         t0 = time.perf_counter()
         _cuda_mszip(plan, todo("mszip"), results, dev, n_threads)
-        _ms(plan.timings, "mszip_cuda_ms", t0)
+        add_ms(plan.timings, "mszip_cuda_ms", t0)
     for codec in ("lzx", "quantum"):
         if routes[codec] == "cuda" and todo(codec):
             t0 = time.perf_counter()
             _cuda_streams(plan, codec, todo(codec), results, dev, n_threads)
-            _ms(plan.timings, f"{codec}_cuda_ms", t0)
+            add_ms(plan.timings, f"{codec}_cuda_ms", t0)
 
     t0 = time.perf_counter()
     mszip_jobs = todo("mszip")
@@ -361,7 +363,7 @@ def execute(plan: Plan, n_threads: int | None = None,
             out = native.qtm_decode(stream, j.window_bits, j.out_len)
             if out is not None:
                 results[j.key] = out
-    _ms(plan.timings, "native_ms", t0)
+    add_ms(plan.timings, "native_ms", t0)
 
     # scalar fallback for declined/irregular folders
     t0 = time.perf_counter()
@@ -388,10 +390,11 @@ def execute(plan: Plan, n_threads: int | None = None,
             if d._d is not None:
                 d._d.outsink = None
         results[(ai, fi)] = sink.getvalue()
-    _ms(plan.timings, "scalar_ms", t0)
+    add_ms(plan.timings, "scalar_ms", t0)
     return results
 
 
+@spanned("mspack.planner.files")
 def archive_files(plan: Plan, folder_bytes: dict) -> List[dict]:
     """Per-archive {filename: bytes} from ``execute``'s folder bytes."""
     out = []
