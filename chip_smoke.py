@@ -294,7 +294,8 @@ def bench_folders(corpus, compression):
         blocks, fsizes = probe.collect_raw_blocks(fol)
         n, wb = sum(fsizes), (fol.comp_type >> 8) & 0x1F
         if compression == "lzx":
-            folders.append(le.LzxCase("folder", b"".join(blocks), n, wb))
+            folders.append(le.LzxCase("folder", b"".join(blocks), n, wb,
+                                      frame_sizes=[len(b) for b in blocks]))
         else:
             folders.append(qe.QtmCase(
                 "folder", b"".join(b + b"\xff" for b in blocks), n, wb,
@@ -899,6 +900,38 @@ def k3_compare(cases, device):
         lambda *a: cl.lzx_phase_a_plain(*a, wb, **kw), inputs, device)
 
 
+def k3_split_compare(cases, device, raws=None):
+    """K3's frame split (``frame_sizes``) on ``device`` and in its plain
+    version on one window's cases: equal counts, equal tokens up to each
+    row's count, the reference codec's bytes (``raws``, else each case's
+    ``raw``), every row split. Returns (ms, plain ms)."""
+    import torch
+
+    from libmspack_tpu_torch import lzx_edge_cases as le
+    from libmspack_tpu_torch.ops import cuda_lzx as cl
+
+    wb, fs = cases[0].window_bits, [c.frame_sizes for c in cases]
+    inputs = le.inputs(cases)
+    kw = dict(tcap=max(c.out_len for c in cases), frame_sizes=fs)
+    want, plain_ms = timed(lambda: cl.lzx_phase_a_plain(*inputs, wb, **kw),
+                           torch.device("cpu"))
+    args = [t.to(device) for t in inputs]
+    dev, ms = timed(lambda: cl.lzx_phase_a(*args, wb, **kw), device, reps=3)
+    dev = tuple(t.cpu() for t in dev)
+    if not torch.equal(dev[2], want[2]) or \
+            (dev[2][6] != cl.SPLIT_DONE).any():
+        raise AssertionError("K3 split: counts differ from the plain version")
+    for i in range(len(cases)):
+        n = int(want[2][2, i])
+        if not (torch.equal(dev[0][i, :n], want[0][i, :n])
+                and torch.equal(dev[1][i, :n], want[1][i, :n])):
+            raise AssertionError("K3 split: tokens differ")
+    if le.resolve(cases, *(t.numpy() for t in dev)) != \
+            (raws or [c.raw for c in cases]):
+        raise AssertionError("K3 split: bytes differ from the reference")
+    return ms, plain_ms
+
+
 def k3_segments(cases, device, seg):
     """K3 in launches of <= seg bytes per lane through the state record
     against one launch: equal bytes and equal final records."""
@@ -967,6 +1000,13 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
         n = k3_segments(sub, device, seg)
         print(f"K3 window 2^{key[0]}: {len(sub)} streams in {n} launches of "
               f"{seg} bytes through the state record = one launch")
+    split = le.lzx_split_batch(seed=0) + [le.lzx_split_many()]
+    for wb in sorted({c.window_bits for c in split}):
+        sub = [c for c in split if c.window_bits == wb]
+        ms, pms = k3_split_compare(sub, device)
+        print(f"K3 split, window 2^{wb}: {len(sub)} streams a warp per "
+              f"frame equal to plain and the reference codec; kernel "
+              f"{ms:.3f} ms, plain {pms:.1f} ms")
     clock.lap("7 K3 edge batch")
 
     # 8. the CAB driver's shape: one whole bench folder per launch
@@ -993,6 +1033,13 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
     print(f"K3 folder: {lit} literals and {len(mlen)} matches, "
           f"{k3_ms * 1e6 / (lit + len(mlen)):.1f} ns per literal or match")
     del tok, litw, cnt
+    # the same folder a warp per frame, as the CAB driver and the planner
+    # launch it (its CFDATA sizes), against the plain version's split
+    split_ms, split_plain_ms = k3_split_compare(
+        folders[:1], device, [corpus[:folders[0].out_len]])
+    print(f"K3 split, the same folder ({len(folders[0].frame_sizes)} frame "
+          f"lanes): kernel {split_ms:.3f} ms against {k3_ms:.3f} ms on one "
+          f"warp, plain {split_plain_ms:.1f} ms, equal")
     args = [t.to(device) for t in le.inputs(folders)]
     (tok, litw, cnt), ms = timed(lambda: cl.lzx_phase_a(
         *args, folders[0].window_bits,
@@ -1021,6 +1068,12 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
         eng = d.cuda_lzx_engine
         if sum(eng.declines.values()):
             raise AssertionError(f"declines {dict(eng.declines)}")
+        if eng.timings.get("k3_split_streams") != len(folders) or \
+                eng.timings.get("k3_split_fallbacks"):
+            raise AssertionError(
+                f"{len(folders)} LZX folders, split "
+                f"{eng.timings.get('k3_split_streams')}, fallbacks "
+                f"{eng.timings.get('k3_split_fallbacks')}")
     k3_launches = k3_count()
     if k3_launches < 1:
         raise AssertionError("K3 never launched on the CAB LZX path")
@@ -1114,8 +1167,10 @@ def lzx_phases(device, total_mb, lzx_big, chm_mb, reps, clock, bench):
           f"best {max(nat[1:]):.1f} MB/s")
     bench["chm"] = dict(blob=chm, want=content)
     clock.lap("11 CHM through the driver")
-    return entry("k3_lzx", "lzx.cu", "libmspack_tpu/ops/pallas_lzx.py:99",
-                 k3_launches, e3, k3_ms, k3_plain_ms, k3_bytes, k3_chain)
+    k3 = entry("k3_lzx", "lzx.cu", "libmspack_tpu/ops/pallas_lzx.py:99",
+               k3_launches, e3, k3_ms, k3_plain_ms, k3_bytes, k3_chain)
+    k3["split_ms"] = split_ms  # the same folder a warp per frame
+    return k3
 
 
 def k4_compare(cases, device):

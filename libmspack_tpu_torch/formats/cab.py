@@ -895,7 +895,8 @@ class CabDecompressor:
             return None if outs is None else outs[0]
         wb = (fol.comp_type >> 8) & 0x1F
         if ct == COMPTYPE_LZX:
-            outs = eng.decode_streams([b"".join(blocks)], [sum(sizes)], wb)
+            outs = eng.decode_streams([b"".join(blocks)], [sum(sizes)], wb,
+                                      frame_sizes=[[len(b) for b in blocks]])
             return None if outs is None else outs[0]
         # Quantum: cabd injects a 0xFF realign trailer after every block
         # (cabd.c:1327-1332)

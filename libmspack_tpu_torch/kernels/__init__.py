@@ -55,6 +55,9 @@ _SIGNATURES = {
     "msp_k2_pass2": [_P, _P, _P, _P, _P, _I, _P, _P],
     "msp_k3_lzx": [_P, _I64, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                    ctypes.c_int32, _P, _P],
+    "msp_k3_lzx_split": [_P, _I64, _P, _P, _P, _I, _I, _P, _P, _P,
+                         ctypes.c_int32, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                         _P],
     "msp_k4_qtm": [_P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_int32,
                    _P, _P],
     "msp_p1_vec": [_I, _I, _I, _I, _P, _P, _P],
@@ -145,7 +148,8 @@ def lib():
         fn.restype = ctypes.c_int
     handle.msp_cuda_error_string.argtypes = [_I]
     handle.msp_cuda_error_string.restype = ctypes.c_char_p
-    for name in ("msp_k3_state_bytes", "msp_k4_state_bytes"):
+    for name in ("msp_k3_state_bytes", "msp_k3_frame_end_bytes",
+                 "msp_k4_state_bytes"):
         getattr(handle, name).argtypes = []
         getattr(handle, name).restype = _I64
     _lib = handle
@@ -268,14 +272,18 @@ def host_twin_resolve():
 
 def host_twin_lzx():
     """The LZX core's twin: ``lz_decode_host``, K3's launch,
-    ``lz_state_bytes``, and the table decode alone: ``lz_first_bits(tree)``
-    (the first-level bits of the main, length, aligned and pretree tables)
-    and ``lz_table_decode``."""
+    ``lz_split_host``, its split launch sequence, ``lz_state_bytes``,
+    ``lz_frame_end_bytes``, and the table decode alone:
+    ``lz_first_bits(tree)`` (the first-level bits of the main, length,
+    aligned and pretree tables) and ``lz_table_decode``."""
     handle = _twin("lzx_core.cuh", "LZX_CORE_HOST_TWIN", ["stream_core.cuh"])
     handle.lz_decode_host.argtypes = _SIGNATURES["msp_k3_lzx"][:-1]
     handle.lz_decode_host.restype = ctypes.c_int
-    handle.lz_state_bytes.argtypes = []
-    handle.lz_state_bytes.restype = _I64
+    handle.lz_split_host.argtypes = _SIGNATURES["msp_k3_lzx_split"][:-1]
+    handle.lz_split_host.restype = ctypes.c_int
+    for name in ("lz_state_bytes", "lz_frame_end_bytes"):
+        getattr(handle, name).argtypes = []
+        getattr(handle, name).restype = _I64
     handle.lz_first_bits.argtypes = [_I]
     handle.lz_first_bits.restype = ctypes.c_int
     handle.lz_table_decode.argtypes = [_P, _I, _I, _P, _I64, _I, _P, _P]

@@ -12,6 +12,11 @@ symbol from an empty tree, an offset beyond the stream, an offset behind
 the window wrap and the frame's start, a repeat match of an R0 above
 2^31).
 
+``lzx_split_batch`` adds streams for K3's frame split, each with its
+frames' CFDATA sizes: blocks that end inside frames, odd uncompressed
+blocks across and on frame edges, repeat matches at frame starts, the
+E8 header.
+
 Streams come from the port's copy of the encoder (``compress/lzx_e``,
 native or Python) and from a small block writer here, which can emit what the encoder
 never does: a chosen block type, R0-R2 set by an uncompressed block, a
@@ -43,6 +48,7 @@ class LzxCase:
     delta: bool = False
     ref: bytes = b""            # DELTA reference data (window tail)
     raw: bytes | None = None    # the reference codec's bytes; None: corrupt
+    frame_sizes: list | None = None  # bytes of each frame, as CFDATA
 
 
 def scalar_decode(stream, out_len, window_bits, delta=False, ref=b""):
@@ -84,7 +90,9 @@ def _write_ops(w, ops):
 class _Writer:
     """Hand-made LZX streams, block by block. Tokens are the encoder's:
     ``(0, byte)``, ``(1, length, repeat index)``, ``(2, length, dist)``;
-    none may cross a 32 KiB frame end, where the writer realigns."""
+    none may cross a 32 KiB frame end, where the writer realigns.
+    ``frames`` keeps each frame's first byte, as a CAB writer cuts its
+    CFDATA blocks."""
 
     def __init__(self, window_bits, intel_filesize=0):
         self.w = LzxBitWriter()
@@ -93,6 +101,7 @@ class _Writer:
         self.prev_main = [0] * self.nmain
         self.prev_len = [0] * lzx_e.NUM_SECONDARY
         self.pos = 0
+        self.frames = [0]
         self.w.write_bits(1 if intel_filesize else 0, 1)
         if intel_filesize:
             self.w.write_bits(intel_filesize >> 16, 16)
@@ -100,8 +109,10 @@ class _Writer:
 
     def _advance(self, n):
         self.pos += n
-        if self.pos % FRAME == 0 and not self.w.bit_aligned:
-            self.w.align16()
+        if self.pos % FRAME == 0:
+            if not self.w.bit_aligned:
+                self.w.align16()
+            self.frames.append(len(self.w.out))
 
     def block(self, tokens, aligned=False, empty_length=False,
               zero_length=False, spill=0):
@@ -359,6 +370,135 @@ def lzx_edge_batch(seed=0, big=1 << 17):
          .block(_lits(t2[:20]) + [(1, 9, 0)]).getvalue())
     add("r0_above_2g_used", s, 2 + 20 + 9, 15, valid=False)
     return cases
+
+
+def frame_sizes(stream, starts, out_len):
+    """CFDATA payload lengths: the stream cut at its frames' first bytes
+    (``starts``, one a frame and maybe one more at the end)."""
+    starts = list(starts[:max(1, -(-out_len // FRAME))]) + [len(stream)]
+    return [b - a for a, b in zip(starts, starts[1:])]
+
+
+def _mixed(rng, pos, n, text, opens=False):
+    """Tokens for n output bytes from output position pos: literals of
+    ``text``, explicit matches and repeat matches of every slot, none
+    crossing a frame end (a byte before one is a literal). ``opens``: a
+    repeat match of slot k mod 3 opens each frame k > 0."""
+    toks, end = [], pos + n
+    while pos < end:
+        room = min(end, (pos // FRAME + 1) * FRAME) - pos
+        kind = rng.randint(10)
+        if opens and pos % FRAME == 0 and pos and room >= 2:
+            ln = min(room, int(rng.randint(2, 200)))
+            toks.append((1, ln, pos // FRAME % 3))
+            pos += ln
+            continue
+        if pos < 64 or room < 2 or kind < 5:
+            k = min(room, rng.randint(1, 40))
+            toks += _lits(text[pos % 1000:pos % 1000 + k].ljust(k, b"."))
+            pos += k
+            continue
+        ln = min(room, int(rng.randint(2, 200)))
+        if kind < 8:
+            toks.append((2, ln, int(rng.randint(1, min(pos, 20000)))))
+        else:
+            toks.append((1, ln, int(rng.randint(3))))
+        pos += ln
+    return toks
+
+
+def _repeats(pos, n):
+    """Repeat matches of R0 for n output bytes from pos, cut at frame
+    ends (a lone byte before one is a literal)."""
+    toks, end = [], pos + n
+    while pos < end:
+        ln = min(257, end - pos, (pos // FRAME + 1) * FRAME - pos)
+        toks.append((1, ln, 0) if ln > 1 else (0, 0x2E))
+        pos += ln
+    return toks
+
+
+def lzx_split_batch(seed=0):
+    """Streams for K3's frame split (``lzx_phase_a(frame_sizes=...)``),
+    each with its frames' CFDATA sizes: blocks that end inside frames and
+    on frame edges, uncompressed blocks of odd length that cross a frame
+    edge or end on one (its pad byte then opens the next frame), the E8
+    header, repeat matches of every slot at frame starts and a folder of
+    repeat matches alone, each with a last frame shorter than 32 KiB."""
+    rng = np.random.RandomState(seed + 11)
+    text = _text(rng, 2000)
+    cases = []
+
+    def add(name, w, wb):
+        s = w.getvalue()
+        raw = scalar_decode(s, w.pos, wb)
+        if raw is None:
+            raise AssertionError(f"{name}: the reference codec rejects it")
+        cases.append(LzxCase(name, s, w.pos, wb, raw=raw,
+                             frame_sizes=frame_sizes(s, w.frames, w.pos)))
+
+    for wb in (15, 16):
+        w, pos = _Writer(wb), 0
+        for n, aligned in ((20000, False), (30000, True), (40000, False),
+                           (10000, True), (31072, False), (5000, True)):
+            w.block(_mixed(rng, pos, n, text), aligned=aligned)
+            pos += n
+        add(f"split_blocks_inside_frames_w{wb}", w, wb)
+    w, pos = _Writer(16), 0
+    for n, stored in ((30001, False), (5001, True), (20000, False),
+                      (10533, True), (12345, False), (7, True),
+                      (9000, False)):
+        if stored:
+            w.stored(bytes(rng.randint(0, 256, n, np.uint8)),
+                     tuple(int(v) for v in rng.randint(1, 3000, 3)))
+        else:
+            w.block(_mixed(rng, pos, n, text))
+        pos += n
+    add("split_stored_odd", w, 16)
+    # three full frames of repeat matches of R0 alone, after a frame that
+    # sets R0-R2 to 3, 17 and 90
+    w = _Writer(15).block(_lits(text[:200]) + [(2, 30, 90), (2, 40, 17),
+                                                 (2, 30, 3)]
+                          + _mixed(rng, 300, FRAME - 300, text))
+    w.block([(1, 3, 2), (1, 5, 1), (1, 7, 2)]
+            + _repeats(FRAME + 15, 3 * FRAME - 15) + _lits(text[:100]))
+    add("split_repeats_across_frames", w, 15)
+    e8 = bytearray(_text(rng, 3 * FRAME + 999))
+    for p in range(10, len(e8) - 10, 101):
+        e8[p:p + 5] = b"\xe8" + int(rng.randint(0, 1 << 20)).to_bytes(
+            4, "little")
+    s, offs = lzx_e.LzxEncoder(16, intel_filesize=5_000_000).compress(
+        bytes(e8))
+    cases.append(LzxCase("split_e8", s, len(e8), 16,
+                         raw=scalar_decode(s, len(e8), 16),
+                         frame_sizes=frame_sizes(s, offs, len(e8))))
+    return cases
+
+
+def lzx_split_many(seed=0, frames=66):
+    """A folder of more than 64 frames for K3's frame split, so that the
+    join composes several frames a lane: blocks of uneven lengths that end
+    inside frames and on frame edges, aligned and verbatim, a repeat match
+    of every slot in turn opening each frame, a last frame shorter than
+    32 KiB. Window 2^16, with its frames' CFDATA sizes."""
+    rng = np.random.RandomState(seed + 23)
+    text = _text(rng, 2000)
+    total = frames * FRAME - 4321
+    w, pos = _Writer(16), 0
+    while pos < total:
+        n = int(rng.randint(3000, 3 * FRAME))
+        if rng.randint(3) == 0:  # to the next frame edge
+            n = FRAME - pos % FRAME
+        n = min(n, total - pos)
+        w.block(_mixed(rng, pos, n, text, opens=True),
+                aligned=bool(rng.randint(2)))
+        pos += n
+    s = w.getvalue()
+    raw = scalar_decode(s, total, 16)
+    if raw is None:
+        raise AssertionError("lzx_split_many: the reference codec rejects it")
+    return LzxCase("split_many_frames", s, total, 16, raw=raw,
+                   frame_sizes=frame_sizes(s, w.frames, total))
 
 
 def groups(cases):

@@ -13,10 +13,15 @@ device:
   on the GPU and NOP (-1) on the CPU.
 * ``cnt``: int32 ``(8, L)``. Row 0 err (0 ok, 1 bad data, 2 token cap),
   row 1 output position reached, row 2 tokens written by this call, row 3
-  input bytes consumed, row 4 ``intel_started``, row 5 ``intel_filesize``.
+  input bytes consumed, row 4 ``intel_started``, row 5 ``intel_filesize``,
+  row 6 how a row given ``frame_sizes`` decoded (0 serially, not split;
+  ``SPLIT_DONE`` a warp per frame; else the ``SPLIT_*`` bits of why its
+  split failed and it decoded serially in the same call), row 7 zero.
   Rows 0, 1, 4 and 5 mean what the TPU kernel's do. Row 3 is this port's
   own cursor (bytes, from the stream's start), not the TPU kernel's
-  32-bit refill cursor.
+  32-bit refill cursor. A split row's row 2 may count one literal token
+  more a frame edge than the serial decode's: a run of literals is cut
+  there.
 * with ``return_state=True`` or a ``state`` passed in, also ``state``:
   uint8 ``(L, STATE_BYTES)``, each lane's whole decoder state
   (``STATE_DTYPE``, the ``lz::State`` record of ``csrc/lzx_core.cuh``).
@@ -28,7 +33,8 @@ device:
 one output byte, so ``tcap`` = the bytes a call decodes is always enough.
 
 A CUDA tensor runs the hand-written kernel (``csrc/lzx.cu``, one warp per
-stream, rows copied to 4-byte alignment first where they are not); a CPU
+stream, or per 32 KiB frame for rows given ``frame_sizes``, rows copied to
+4-byte alignment first where they are not); a CPU
 tensor runs ``lzx_phase_a_plain``, a straightforward Python decoder of the same
 format, counts and state record. ``LAUNCHES`` counts both. Inside
 ``shadow.active()`` a launch on a card also runs the plain version on CPU
@@ -47,6 +53,7 @@ from .cuda_inflate import pack_streams
 TOK_NOP = -1
 TOK_LIT = 0x20000000
 TOK_MATCH = 0x40000000
+TOK_REP = 0x10000000    # a frame lane's symbolic repeat match (join only)
 
 FRAME = 32768
 NPRE = 20
@@ -63,7 +70,7 @@ STATE_DTYPE = np.dtype([
     ("block_type", "<i4"), ("block_remaining", "<i4"),
     ("block_length", "<i4"), ("header_read", "<i4"),
     ("intel_started", "<i4"), ("intel_filesize", "<i4"),
-    ("length_empty", "<i4"), ("err", "<i4"), ("pad", "<i4"),
+    ("length_empty", "<i4"), ("err", "<i4"), ("rtag", "<i4"),
     ("main_count", "<u2", (17,)), ("len_count", "<u2", (17,)),
     ("aln_count", "<u2", (17,)),
     ("main_sym", "<u2", (MAIN_MAX,)), ("len_sym", "<u2", (NLEN,)),
@@ -72,9 +79,35 @@ STATE_DTYPE = np.dtype([
     ("len_lens", "u1", (NLEN + SAFETY,)), ("aln_lens", "u1", (NALN,)),
 ], align=True)
 STATE_BYTES = STATE_DTYPE.itemsize
-_SCALARS = ("bitpos", "outpos", "r0", "r1", "r2", "block_type",
+_SCALARS = ("bitpos", "outpos", "r0", "r1", "r2", "rtag", "block_type",
             "block_remaining", "block_length", "header_read",
             "intel_started", "intel_filesize", "length_empty", "err")
+# lz::FrameEnd: a frame lane's end scalars and token count
+FRAME_END_DTYPE = np.dtype([
+    ("bitpos", "<i8"), ("outpos", "<i8"),
+    ("r0", "<u4"), ("r1", "<u4"), ("r2", "<u4"), ("rtag", "<u4"),
+    ("block_type", "<i4"), ("block_remaining", "<i4"),
+    ("block_length", "<i4"), ("header_read", "<i4"),
+    ("intel_started", "<i4"), ("intel_filesize", "<i4"),
+    ("length_empty", "<i4"), ("err", "<i4"), ("ntok", "<i4"),
+    ("pad", "<i4")], align=True)
+# the seam: what a frame's end and the next frame's seed must agree on
+_SEAM = ("bitpos", "outpos", "block_type", "block_remaining",
+         "block_length", "header_read", "intel_started", "intel_filesize",
+         "length_empty")
+# counts row 6 of a split stream: SPLIT_DONE, or the bits of why its split
+# failed and it decoded serially (lzx_core.cuh)
+SPLIT_DONE, SPLIT_SEED, SPLIT_FRAME, SPLIT_SEAM, SPLIT_CHECK, SPLIT_CAP = (
+    1, 2, 4, 8, 16, 32)
+# each bit's name: the header walk failed (a block count other than the
+# frame count among its causes), a frame lane flagged or stopped short, a
+# seam disagrees, a symbolic offset failed its checks, the token cap
+SPLIT_REASONS = {SPLIT_SEED: "seed", SPLIT_FRAME: "frame",
+                 SPLIT_SEAM: "seam", SPLIT_CHECK: "check", SPLIT_CAP: "cap"}
+# The fewest CFDATA blocks a stream splits at: below it one warp decodes
+# the stream faster than the split's three extra passes (measured on the
+# card, PERF.md).
+MIN_SPLIT_FRAMES = 2
 
 LAUNCHES = {"cuda": 0, "plain": 0}
 
@@ -138,10 +171,12 @@ def _check_batch(streams, lens, out_lens, hists, window_bits, is_delta,
 
 def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
                 is_delta=False, tcap, state=None, return_state=False,
-                device=None):
+                device=None, frame_sizes=None):
     """Phase A on a batch (see the module docstring). ``device`` moves the
     batch there first; by default it runs where ``streams`` lies. A CUDA
-    tensor launches K3 or raises."""
+    tensor launches K3 or raises. ``frame_sizes``: per row None or its
+    CFDATA payload lengths; such a row of a fresh, non-DELTA call with no
+    state asked for decodes a warp per frame (``split_rows``)."""
     if device is not None:
         dev = resolve_device(device)
         streams, lens, out_lens, hists = (
@@ -151,10 +186,13 @@ def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
     _check_batch(streams, lens, out_lens, hists, window_bits, is_delta,
                  state)
     want_state = return_state or state is not None
+    if want_state:
+        frame_sizes = None
     if streams.device.type == "cpu":
         LAUNCHES["plain"] += 1
         out = lzx_phase_a_plain(streams, lens, out_lens, hists, window_bits,
-                                is_delta=is_delta, tcap=tcap, state=state)
+                                is_delta=is_delta, tcap=tcap, state=state,
+                                frame_sizes=frame_sizes)
         return out if want_state else out[:3]
     if streams.device.type != "cuda":
         raise ValueError(f"unsupported device {streams.device}")
@@ -171,20 +209,67 @@ def lzx_phase_a(streams, lens, out_lens, hists, window_bits, *,
     tok = torch.empty((L, tcap), dtype=torch.int32, device=dev)
     litw = torch.empty((L, tcap), dtype=torch.int32, device=dev)
     cnt = torch.empty((8, L), dtype=torch.int32, device=dev)
+    split = split_rows(frame_sizes, L, is_delta, fresh)
     with torch.cuda.device(dev):
-        rc = lib.msp_k3_lzx(
-            streams.data_ptr(), streams.stride(0), lens.data_ptr(),
-            out_lens.data_ptr(), hists.data_ptr(), L, window_bits,
-            int(bool(is_delta)), int(fresh), state.data_ptr(),
-            tok.data_ptr(), litw.data_ptr(), tcap, cnt.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        if split:
+            rc = _launch_split(lib, streams, lens, out_lens, hists, L,
+                               window_bits, state, tok, litw, tcap, cnt,
+                               split)
+        else:
+            rc = lib.msp_k3_lzx(
+                streams.data_ptr(), streams.stride(0), lens.data_ptr(),
+                out_lens.data_ptr(), hists.data_ptr(), L, window_bits,
+                int(bool(is_delta)), int(fresh), state.data_ptr(),
+                tok.data_ptr(), litw.data_ptr(), tcap, cnt.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "K3 lzx")
     LAUNCHES["cuda"] += 1
     if host is not None:
         shadow.record("k3_lzx", (tok, litw, cnt, state), lzx_phase_a_plain(
             *host[:4], window_bits, is_delta=is_delta, tcap=tcap,
-            state=host[4]))
+            state=host[4], frame_sizes=frame_sizes))
     return (tok, litw, cnt, state) if want_state else (tok, litw, cnt)
+
+
+def split_meta(split, L):
+    """``lz::make_split``'s int32 table of the split rows: (meta, S, F)."""
+    rows = sorted(split)
+    nfs = [len(split[i]) for i in rows]
+    first = np.concatenate([[0], np.cumsum(nfs)]).astype(np.int64)
+    F = int(first[-1])
+    fstream = np.repeat(np.arange(len(rows)), nfs)
+    fstart = np.concatenate([split[i] for i in rows])
+    if fstart.max(initial=0) >= 1 << 31:
+        raise ValueError("a CFDATA start beyond 2^31 bytes")
+    split_of = np.full(L, -1, np.int64)
+    split_of[rows] = np.arange(len(rows))
+    meta = np.concatenate([rows, first, fstream, fstart, split_of])
+    return meta.astype(np.int32), len(rows), F
+
+
+def _launch_split(lib, streams, lens, out_lens, hists, L, window_bits,
+                  state, tok, litw, tcap, cnt, split):
+    """K3's split launch sequence (``csrc/lzx.cu:msp_k3_lzx_split``); its
+    scratch (a seed record and a FRAME-token row a frame) is freed to the
+    allocator in stream order."""
+    if lib.msp_k3_frame_end_bytes() != FRAME_END_DTYPE.itemsize:
+        raise RuntimeError("lz::FrameEnd and FRAME_END_DTYPE differ in size")
+    meta, S, F = split_meta(split, L)
+    dev = streams.device
+    meta = torch.from_numpy(meta).to(dev)
+    seeds = torch.empty((F, STATE_BYTES), dtype=torch.uint8, device=dev)
+    ends = torch.empty((F, FRAME_END_DTYPE.itemsize), dtype=torch.uint8,
+                       device=dev)
+    ftok = torch.empty((F, FRAME), dtype=torch.int32, device=dev)
+    flitw = torch.empty((F, FRAME), dtype=torch.int32, device=dev)
+    flags = torch.empty(S, dtype=torch.int32, device=dev)
+    return lib.msp_k3_lzx_split(
+        streams.data_ptr(), streams.stride(0), lens.data_ptr(),
+        out_lens.data_ptr(), hists.data_ptr(), L, window_bits,
+        state.data_ptr(), tok.data_ptr(), litw.data_ptr(), tcap,
+        cnt.data_ptr(), meta.data_ptr(), S, F, seeds.data_ptr(),
+        ends.data_ptr(), ftok.data_ptr(), flitw.data_ptr(), flags.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
 
 
 # ---------------------------------------------------------------- plain --
@@ -372,6 +457,7 @@ class _Lane:
         self.block_remaining = self.block_length = (hi << 8) | self.take(8)
         if self.block_type == 3:
             self.intel_started = 1
+            self.rtag = 0
             q = (((self.tell() >> 4) + 1) << 4) >> 3
             r = [self.byte_at(q + k) for k in range(12)]
             self.r0, self.r1, self.r2 = (
@@ -408,14 +494,18 @@ class _Lane:
             ln += self.decode(self.luts["len"])
         ln += 2
         slot = elem >> 3
+        t = self.rtag
+        symbol = slot < 3 and (t >> slot) & 1
         if slot == 0:
             off = self.r0
         elif slot == 1:
             off = self.r1
             self.r1, self.r0 = self.r0, off
+            self.rtag = (t & 4) | ((t & 1) << 1) | ((t >> 1) & 1)
         elif slot == 2:
             off = self.r2
             self.r2, self.r0 = self.r0, off
+            self.rtag = (t & 2) | ((t & 1) << 2) | ((t >> 2) & 1)
         else:
             extra = 17 if slot >= 36 else (slot >> 1) - 1
             if slot < 38:
@@ -430,6 +520,7 @@ class _Lane:
             else:
                 off += self.take(extra)
             self.r2, self.r1, self.r0 = self.r1, self.r0, off
+            self.rtag = (t << 1) & 6
         if self.delta and ln == 257:
             e = self.peek(3)
             if e >> 2 == 0:
@@ -450,6 +541,12 @@ class _Lane:
             raise _DataError("match over the window wrap")
         if ln > self.block_remaining or self.outpos + ln > fend:
             raise _DataError("match past the block or frame")
+        if symbol:   # checked by the join
+            self.flush()
+            self.emit(TOK_REP | ln, off << 16 | (self.outpos - fbase))
+            self.outpos += ln
+            self.block_remaining -= ln
+            return
         first = ln
         if off > lap:
             if off > fbase and off - lap > self.hist:
@@ -468,6 +565,38 @@ class _Lane:
         self.outpos += ln
         self.block_remaining -= ln
 
+    def run_to(self, fbase, fend, stop):
+        """Decode up to ``stop`` inside the frame [fbase, fend)."""
+        while self.outpos < stop:
+            if self.block_remaining == 0:
+                self.begin_block()
+                continue
+            if self.block_type == 3:
+                k = min(stop - self.outpos, self.block_remaining)
+                q = self.tell() >> 3
+                for j in range(k):
+                    self.literal(self.byte_at(q + j))
+                self.seek((q + k) * 8)
+                self.outpos += k
+                self.block_remaining -= k
+                continue
+            sym = self.decode(self.luts["main"])
+            if sym < 256:
+                self.literal(sym)
+                self.outpos += 1
+                self.block_remaining -= 1
+                continue
+            self.match(sym, fbase, fend)
+
+    def read_intel_header(self):
+        v = 0
+        if self.take(1):
+            hi = self.take(16)
+            v = (hi << 16) | self.take(16)
+            v = v - (1 << 32) if v & 0x80000000 else v
+        self.intel_filesize = v
+        self.header_read = 1
+
     def run(self, target):
         while self.outpos < target:
             fbase = self.outpos
@@ -475,36 +604,25 @@ class _Lane:
             if self.delta:
                 self.take(16)
             if not self.header_read:
-                v = 0
-                if self.take(1):
-                    hi = self.take(16)
-                    v = (hi << 16) | self.take(16)
-                    v = v - (1 << 32) if v & 0x80000000 else v
-                self.intel_filesize = v
-                self.header_read = 1
-            while self.outpos < fend:
-                if self.block_remaining == 0:
-                    self.begin_block()
-                    continue
-                if self.block_type == 3:
-                    k = min(fend - self.outpos, self.block_remaining)
-                    q = self.tell() >> 3
-                    for j in range(k):
-                        self.literal(self.byte_at(q + j))
-                    self.seek((q + k) * 8)
-                    self.outpos += k
-                    self.block_remaining -= k
-                    continue
-                sym = self.decode(self.luts["main"])
-                if sym < 256:
-                    self.literal(sym)
-                    self.outpos += 1
-                    self.block_remaining -= 1
-                    continue
-                self.match(sym, fbase, fend)
+                self.read_intel_header()
+            self.run_to(fbase, fend, fend)
             if self.block_type != 3:
                 self.seek((self.tell() + 15) & ~15)
         self.flush()
+
+    def put_seed(self, seeds, k, bitpos, outpos, remaining):
+        """seeds[k]: this lane's trees and block state at a frame start,
+        R0-R2 as the input symbols (lzx_core.cuh:put_seed)."""
+        seeds[k] = self.rec
+        seed = seeds[k:k + 1]
+        for f in _SCALARS:
+            seed[f] = getattr(self, f)
+        seed["main_lens"] = self.main_lens
+        seed["len_lens"] = self.len_lens
+        seed["aln_lens"] = self.aln_lens
+        seed["bitpos"], seed["outpos"] = bitpos, outpos
+        seed["block_remaining"], seed["err"] = remaining, 0
+        seed["r0"], seed["r1"], seed["r2"], seed["rtag"] = 0, 1, 2, 7
 
     def decode_to(self, target):
         """-> the counts column (err, outpos, ntok, cursor, intel_started,
@@ -535,12 +653,137 @@ def _new_state(L):
     return torch.from_numpy(arr.view(np.uint8).reshape(L, STATE_BYTES))
 
 
+def split_rows(frame_sizes, L, is_delta=False, fresh=True):
+    """{row: its frames' CFDATA starts (bytes)} of the rows that decode
+    split: those given at least MIN_SPLIT_FRAMES CFDATA payload lengths,
+    in a fresh non-DELTA launch. The one rule left to the kernel needs the
+    output length: its header walk fails a row whose block count is not
+    its frame count, which then decodes serially (``SPLIT_SEED``)."""
+    if frame_sizes is None or is_delta or not fresh:
+        return {}
+    if len(frame_sizes) != L:
+        raise ValueError(f"frame_sizes must have {L} entries")
+    return {i: np.concatenate([[0], np.cumsum(fs[:-1])]).astype(np.int64)
+            for i, fs in enumerate(frame_sizes)
+            if fs is not None and len(fs) >= MIN_SPLIT_FRAMES}
+
+
+def _seed_walk(src, total, hist, wbits, fstart):
+    """split_seed of lzx_core.cuh: the seeds of a stream's frames, or None
+    where the walk fails."""
+    nf = len(fstart)
+    if nf < 1 or nf != -(-total // FRAME) or fstart[0] != 0:
+        return None
+    seeds = np.zeros(nf, STATE_DTYPE)
+    seeds["r0"] = seeds["r1"] = seeds["r2"] = 1
+    lane = _Lane(src, seeds[:1].copy()[0], hist, wbits, False, 1 << 62)
+    nxt, o = 1, 0
+    try:
+        lane.read_intel_header()
+        while o < total:
+            lane.begin_block()
+            e = o + lane.block_length
+            if e == o:
+                continue
+            hf, raw = o // FRAME, lane.tell() >> 3
+            while nxt * FRAME < min(e, total):
+                lane.put_seed(seeds, nxt, int(fstart[nxt]) * 8, nxt * FRAME,
+                              e - nxt * FRAME)
+                nxt += 1
+            if e >= total:
+                break
+            j = e // FRAME
+            lane.outpos, lane.block_remaining = e, 0
+            if lane.block_type == 3:
+                g = (e - 1) // FRAME
+                lane.seek(8 * (raw + e - o if g <= hf
+                               else int(fstart[g]) + e - g * FRAME))
+            elif e % FRAME == 0:
+                lane.seek(int(fstart[j]) * 8)
+            else:
+                fbase = j * FRAME
+                lane.outpos, lane.block_remaining = o, e - o
+                if j != hf:
+                    lane.seek(int(fstart[j]) * 8)
+                    lane.outpos, lane.block_remaining = fbase, e - fbase
+                lane.rtag = 7
+                lane.run_to(fbase, min(fbase + FRAME, total), e)
+                if lane.outpos != e:
+                    return None
+            if e % FRAME == 0 and nxt == j:
+                lane.put_seed(seeds, nxt, lane.tell(), e, 0)
+                nxt += 1
+            o = e
+    except (_DataError, _TokenCap):
+        return None
+    return seeds if nxt == nf else None
+
+
+def _split_plain(src, total, hist, wbits, fstart, cap):
+    """One stream through the split passes of lzx_core.cuh, in order:
+    ``(flags, tok, litw, counts rows 0-5)``; flags 0 when the frames'
+    trace is the stream's, else its SPLIT_* bits (and no trace)."""
+    seeds = _seed_walk(src, total, hist, wbits, fstart)
+    if seeds is None:
+        return SPLIT_SEED, None, None, None
+    nf = len(seeds)
+    ends = np.zeros(nf, FRAME_END_DTYPE)
+    parts = []
+    for k in range(nf):
+        lane = _Lane(src, seeds[k:k + 1].copy()[0], hist, wbits, False, FRAME)
+        lane.decode_to(min((k + 1) * FRAME, total))
+        for f in FRAME_END_DTYPE.names[:-2]:
+            ends[f][k] = getattr(lane, f)
+        ends["ntok"][k] = len(lane.toks)
+        parts.append((lane.toks, lane.litws))
+    wsize = 1 << wbits
+    flags, off, rin = 0, 0, [1, 1, 1]
+    tok, litw = [], []
+    for k, (toks, litws) in enumerate(parts):
+        E = ends[k]
+        fbase = k * FRAME
+        fail = 0
+        if E["err"] or E["outpos"] != min(fbase + FRAME, total):
+            fail |= SPLIT_FRAME
+        if k and any(ends[f][k - 1] != seeds[f][k] for f in _SEAM):
+            fail |= SPLIT_SEAM
+        if off + len(toks) > cap:
+            fail |= SPLIT_CAP
+        if not fail:
+            for v, w in zip(toks, litws):
+                if v & TOK_REP:
+                    ln, o = v & 0xFFFFF, rin[(w >> 16) & 3]
+                    lap = (fbase + (w & 0xFFFF)) & (wsize - 1)
+                    if o > lap and ((o > fbase and o - lap > hist)
+                                    or o - lap > wsize
+                                    or (o > wsize and ln > o - lap)):
+                        fail |= SPLIT_CHECK
+                    v = TOK_MATCH | ln
+                    w = o - wsize if o > lap and o > wsize else o
+                    w = w - (1 << 32) if w >= 1 << 31 else w
+                tok.append(v)
+                litw.append(w)
+        flags |= fail
+        rin = [rin[int(E[f"r{i}"])] if (int(E["rtag"]) >> i) & 1
+               else int(E[f"r{i}"]) for i in range(3)]
+        off += len(toks)
+    if flags:
+        return flags, None, None, None
+    last = ends[-1]
+    return 0, tok, litw, (0, int(last["outpos"]), off,
+                          (int(last["bitpos"]) + 7) >> 3,
+                          int(last["intel_started"]),
+                          int(last["intel_filesize"]))
+
+
 def lzx_phase_a_plain(streams, lens, out_lens, hists, window_bits, *,
-                      is_delta=False, tcap, state=None):
+                      is_delta=False, tcap, state=None, frame_sizes=None):
     """Plain version of K3 on CPU tensors: same outputs and state record,
     with NOP (-1) tokens and zero litwords past each lane's count. Returns
-    ``(tok, litw, cnt, state)``; a passed ``state`` is updated in place."""
+    ``(tok, litw, cnt, state)``; a passed ``state`` is updated in place.
+    ``frame_sizes`` splits rows as ``lzx_phase_a`` does (counts row 6)."""
     L = streams.shape[0]
+    split = split_rows(frame_sizes, L, is_delta, state is None)
     if state is None:
         state = _new_state(L)
     recs = state.numpy().view(STATE_DTYPE).reshape(L)
@@ -549,9 +792,23 @@ def lzx_phase_a_plain(streams, lens, out_lens, hists, window_bits, *,
     litw = np.zeros((L, tcap), np.int32)
     cnt = np.zeros((8, L), np.int32)
     for i in range(L):
-        lane = _Lane(src[i, :int(lens[i])].tobytes(), recs[i], int(hists[i]),
-                     window_bits, bool(is_delta), tcap)
+        data = src[i, :int(lens[i])].tobytes()
+        flags = None
+        if i in split:
+            flags, toks, litws, col = _split_plain(
+                data, int(out_lens[i]), int(hists[i]), window_bits,
+                split[i], tcap)
+            if not flags:
+                cnt[:6, i] = col
+                cnt[6, i] = SPLIT_DONE
+                tok[i, :len(toks)] = toks
+                litw[i, :len(litws)] = litws
+                continue
+        lane = _Lane(data, recs[i], int(hists[i]), window_bits,
+                     bool(is_delta), tcap)
         cnt[:6, i] = lane.decode_to(int(out_lens[i]))
+        if flags:
+            cnt[6, i] = flags
         n = len(lane.toks)
         tok[i, :n] = lane.toks
         litw[i, :n] = lane.litws

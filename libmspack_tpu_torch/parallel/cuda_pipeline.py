@@ -477,17 +477,31 @@ class CudaLzxEngine(_StreamEngine):
     stream or DELTA blocks forbid it, a resolver error); the caller then
     takes its own fallback. With ``per_lane`` (independent streams, as OAB
     blocks are) it always returns the list, None only in the lanes that
-    declined. Every decline is counted in ``declines``, once a launch."""
+    declined. Every decline is counted in ``declines``, once a launch.
+
+    A CAB folder whose caller gives its CFDATA payload lengths
+    (``frame_sizes``) decodes a warp per 32 KiB frame (``lzx_phase_a``
+    picks the rows: ``cuda_lzx.split_rows``; a folder whose blocks are
+    not one frame each decodes serially in the same call). ``timings``
+    counts them: ``k3_split_streams``, ``k3_split_frames``,
+    ``k3_split_bytes`` (output bytes the frame lanes decoded) and
+    ``k3_split_fallbacks`` (split streams that decoded serially), and
+    each fallback's first reason under ``k3_split_fallbacks_<reason>``
+    (``cuda_lzx.SPLIT_REASONS``). A fallback is no decline."""
+
+    SPLIT_KEYS = ("k3_split_streams", "k3_split_frames", "k3_split_bytes",
+                  "k3_split_fallbacks")
 
     @spanned("mspack.engine.decode", "total_ms")
     def decode_streams(self, streams, out_lens, window_bits, n_threads=None,
                        decline_on_intel=False, is_delta=False, refs=None,
-                       per_lane=False):
+                       per_lane=False, frame_sizes=None):
         """streams: list of bytes; out_lens: their decoded sizes; refs:
         DELTA reference data per stream (preloaded at the window tail,
         lzxd.c:348-382). ``decline_on_intel``: the streams are chunks of
         one stream (CHM section 1), whose E8 state is stream-global
-        (lzxd.c:707-713), so an E8 header declines."""
+        (lzxd.c:707-713), so an E8 header declines. ``frame_sizes``: each
+        stream's CFDATA payload lengths (a CAB folder's), or None."""
         if not streams:
             return []
         declined = [None] * len(streams) if per_lane else None
@@ -503,10 +517,24 @@ class CudaLzxEngine(_StreamEngine):
                    intel_declines=decline_on_intel or is_delta,
                    is_delta=is_delta, per_lane=per_lane,
                    refs=list(refs) if refs else [b""] * len(streams),
+                   frame_sizes=frame_sizes,
                    outs=[None] * len(streams))
         # per_lane: a segmented batch that declines stops the run; its lanes
         # and those of the batches after it stay None
         return job["outs"] if self._run(job) or per_lane else None
+
+    def _count_split(self, row6, sizes):
+        """The split counters of a launch's lanes (counts row 6)."""
+        row6 = np.asarray(row6)
+        done = row6 == cl.SPLIT_DONE
+        sizes = np.asarray(sizes, np.int64)
+        add = (int(done.sum()), int((-(-sizes[done] // cl.FRAME)).sum()),
+               int(sizes[done].sum()), int((row6 > cl.SPLIT_DONE).sum()))
+        for key, v in zip(self.SPLIT_KEYS, add):
+            self.timings[key] = self.timings.get(key, 0) + v
+        for v in row6[row6 > cl.SPLIT_DONE]:
+            key = "k3_split_fallbacks_" + cl.SPLIT_REASONS[int(v) & -int(v)]
+            self.timings[key] = self.timings.get(key, 0) + 1
 
     # -- batching --------------------------------------------------------
 
@@ -528,9 +556,11 @@ class CudaLzxEngine(_StreamEngine):
                 streams, lens, budgets = self._upload(idxs, job)
                 targets = targets.to(self.device)
                 e1 = self._mark()
+                fs = job["frame_sizes"]
                 tok, litw, cnt = cl.lzx_phase_a(
                     streams, lens, targets, budgets, job["window_bits"],
-                    is_delta=job["is_delta"], tcap=max(1, max(sizes)))
+                    is_delta=job["is_delta"], tcap=max(1, max(sizes)),
+                    frame_sizes=None if fs is None else [fs[i] for i in idxs])
                 e2 = self._mark()
         self.lanes += len(idxs)
         return dict(k=k, idxs=idxs, sizes=sizes, tok=tok, litw=litw,
@@ -568,6 +598,7 @@ class CudaLzxEngine(_StreamEngine):
             e0, e1, e2 = h["marks"]
             self._add("upload_ms", e0, e1)
             self._add("k3_ms", e1, e2)
+            self._count_split(cnt[6], sizes)
             bad = (cnt[0] != 0) | (cnt[1] != np.asarray(sizes))
             if bad.any():
                 self.declines["flagged lane"] += 1

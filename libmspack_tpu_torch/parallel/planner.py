@@ -258,8 +258,11 @@ def _cuda_streams(plan, codec, jobs, results, dev, n_threads):
             else:
                 streams = [b"".join(b + b"\xff" for b in j.blocks)
                            for j in group]
+        # an LZX folder's CFDATA sizes let K3 decode it a warp per frame
+        kw = {"frame_sizes": [[len(b) for b in j.blocks] for j in group]} \
+            if lzx else {}
         outs = eng.decode_streams(streams, [j.out_len for j in group], wb,
-                                  n_threads, per_lane=True)
+                                  n_threads, per_lane=True, **kw)
         plan.calls[codec] += 1
         declined = []
         for i, (j, out) in enumerate(zip(group, outs)):
