@@ -189,7 +189,10 @@ def main(argv=None, root=ROOT, device=None, engine="cuda") -> int:
                                      f"{cell['traffic']}.json"))
 
     heap = keep_freed_memory() if device is None else False
+    t = time.perf_counter()
     import torch
+    t_torch = time.perf_counter() - t
+    t = time.perf_counter()
     if device is None:
         if not torch.cuda.is_available() or \
                 torch.cuda.device_count() < cell["chips"]:
@@ -197,7 +200,10 @@ def main(argv=None, root=ROOT, device=None, engine="cuda") -> int:
                 f"found {torch.cuda.device_count()}: no result")
             return 2
         device = "cuda"
+        t_card = time.perf_counter() - t
         log(f"card: {card_line()}; allocator keeps freed memory: {heap}")
+    else:
+        t_card = time.perf_counter() - t
     try:
         importlib.import_module("libmspack_tpu_torch")
     except ImportError as e:
@@ -240,8 +246,9 @@ def main(argv=None, root=ROOT, device=None, engine="cuda") -> int:
     t_warm = time.perf_counter() - t
     run = Run(cell["name"], config, traffic)
     run.setup_s = time.perf_counter() - t_start - t_inputs
-    log(f"set-up: {run.setup_s:.3f} s (kernels and encoders loaded or "
-        f"built {t_build:.3f} s, warm-up {t_warm:.3f} s; the inputs' "
+    log(f"set-up: {run.setup_s:.3f} s (torch imported {t_torch:.3f} s, "
+        f"card found {t_card:.3f} s, kernels and encoders loaded or built "
+        f"{t_build:.3f} s, warm-up {t_warm:.3f} s; the inputs' "
         f"{t_inputs:.3f} s not counted)")
 
     keep_at = sample(args.seed, traffic)
@@ -267,6 +274,7 @@ def main(argv=None, root=ROOT, device=None, engine="cuda") -> int:
                               "counters": counters})
             if ok and i in keep_at:
                 kept.append((item, owned(files)))
+                last = None
             elif ok:
                 last = (item, files)
             i += 1
@@ -292,8 +300,7 @@ def main(argv=None, root=ROOT, device=None, engine="cuda") -> int:
     for e in errors[:5]:
         log(f"failed item: {e[:500]}")
 
-    if last is not None and not any(k[0] is last[0] and k[1] is last[1]
-                                    for k in kept):
+    if last is not None:
         kept.append(last)
     checked = wrong = nbytes = 0
     for item, files in kept:

@@ -121,6 +121,34 @@ def test_the_oab_sink_is_reused_and_kept_items_are_copied(tiny_root,
     assert "compared 3 files of 3 items" in err
 
 
+class StepClock:
+    """A ``time`` whose ``perf_counter`` moves one second a call, so that a
+    window of ``--seconds 3`` holds exactly two items."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += 1.0
+        return self.now
+
+
+def test_a_window_that_ends_on_a_sampled_item_is_correct(tiny_root,
+                                                         run_cell,
+                                                         monkeypatch):
+    """The window's first item is not sampled and hands back views of the
+    reused OAB sink; the second, its last, is sampled, kept as bytes of
+    its own, and writes the sink again. The first item's views then hold
+    the second's bytes and are not compared."""
+    from portbench import run
+    monkeypatch.setattr(run, "time", StepClock())
+    monkeypatch.setattr(run, "sample", lambda seed, traffic: {1})
+    rc, res, err = run_cell(tiny_root, "oab_full.blocks64k", seconds=3.0)
+    assert rc == 0 and res["attempted"] == 2
+    assert res["correct"], err
+    assert "compared 1 files of 1 items" in err
+
+
 def test_a_failing_item_is_counted_and_not_correct(tiny_root, run_cell,
                                                    monkeypatch):
     from libmspack_tpu_torch.formats.cab import CabDecompressor

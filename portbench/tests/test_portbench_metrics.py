@@ -73,7 +73,7 @@ def test_last_line_schema(tiny_root, run_cell):
     assert list(res) == ["correct", "attempted", "failed", "metrics",
                          "device", "checks"]
     assert res["correct"] is True and res["failed"] == 0
-    assert set(res["metrics"]) == {"out_mbps", "archive_p95_ms", "setup_s"}
+    assert set(res["metrics"]) == {"out_mbps", "setup_s"}
     assert all(set(m) == {"value", "unit"} for m in res["metrics"].values())
     assert set(res["device"]) == {"platform", "kind", "count",
                                   "memory_peak_bytes"}
@@ -96,6 +96,13 @@ def test_traced_line_has_the_cells_layer_metrics(tiny_root, run_cell):
     assert res["device"]["window_s"] > 0
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     assert list(res)[-1] == "checks"
+
+
+def test_the_archive_p95_is_read_in_the_traced_line(tiny_root, run_cell):
+    rc, res, _ = run_cell(tiny_root, "cab_corpus.per_archive", trace=1)
+    assert rc == 0 and res["correct"]
+    p95 = res["metrics"]["driver.cab_archive_p95_ms"]
+    assert p95["unit"] == "ms" and p95["value"] > 0
 
 
 @pytest.mark.cuda
