@@ -52,11 +52,16 @@ The JAX package's ``"jax"`` and ``"tpu"`` engines are the port's
 to the host; the port serves them on K3, held to the JAX ``scalar`` path's
 bytes.
 
-Spans (``tracing``): ``mspack.oab.decompress`` around ``decompress``;
-inside it, under ``engine="cuda"``, ``mspack.oab.read`` (the read-ahead)
-and ``mspack.oab.write`` (the batch's blocks written in file order with
-their CRC checks, whose host time is ``timings["crc_ms"]``), once a
-batch.
+Spans (``tracing``): ``mspack.oab.decompress`` around ``decompress`` and
+``mspack.oab.decompress_incremental`` around ``decompress_incremental``;
+inside either, under ``engine="cuda"``, ``mspack.oab.read`` (the
+read-ahead) and ``mspack.oab.write`` (the batch's blocks written in file
+order with their CRC checks, whose host time is ``timings["crc_ms"]``),
+once a batch. In a patch, ``mspack.oab.read`` holds ``mspack.oab.base``:
+the batch's reference data read from the base in one read, once the
+batch's headers and payloads are read, each block given its slice; its
+host time is ``timings["base_ms"]`` and the bytes the blocks took
+``timings["base_bytes"]``.
 """
 from __future__ import annotations
 
@@ -85,7 +90,7 @@ class _Block:
     fields, window, payload and reference data."""
 
     __slots__ = ("hdr_pos", "flags", "csize", "dsize", "crc",
-                 "window_bits", "payload", "ref")
+                 "window_bits", "payload", "ssize", "ref")
 
     def __init__(self, **kw):
         for k, v in kw.items():
@@ -165,6 +170,7 @@ class OabDecompressor:
 
     # -- incremental patch -----------------------------------------------
 
+    @spanned("mspack.oab.decompress_incremental")
     def decompress_incremental(self, input_: PathOrBytes, base: PathOrBytes,
                                output) -> None:
         """reference: oabd.c:234-373."""
@@ -236,46 +242,49 @@ class OabDecompressor:
         whose payloads and reference data are whole, in file order, up to
         ``READ_AHEAD`` decoded bytes. ``stopped``: the block after them is
         bad or short; ``src`` and ``basesrc`` are put back to its start."""
-        blocks, total = [], 0
+        blocks, total, stopped = [], 0, False
         while target_size and total < READ_AHEAD:
             hdr_pos = src.tell()
-            base_pos = basesrc.tell() if basesrc is not None else 0
-            blk = self._read_block(src, basesrc, block_max, target_size)
+            blk = self._read_block(src, block_max, target_size,
+                                   basesrc is not None)
             if blk is None:
                 src.seek(hdr_pos)
-                if basesrc is not None:
-                    basesrc.seek(base_pos)
-                return blocks, True
+                stopped = True
+                break
             blk.hdr_pos = hdr_pos
             blocks.append(blk)
             total += blk.dsize
             target_size -= blk.dsize
-        return blocks, False
+        if basesrc is not None and blocks:
+            with span("mspack.oab.base", self.timings, "base_ms"):
+                kept = self._read_base(src, basesrc, blocks)
+            if kept < len(blocks):
+                del blocks[kept:]
+                stopped = True
+        return blocks, stopped
 
     @staticmethod
-    def _read_block(src, basesrc, block_max: int, target_size: int):
-        """One block read whole, or None where the reference loop would
-        raise or decode a short payload (the header tests are the
-        reference's, above)."""
+    def _read_block(src, block_max: int, target_size: int, patch: bool):
+        """One block's header and payload read whole, or None where the
+        reference loop would raise or decode a short payload (the header
+        tests are the reference's, above). A patch block's reference data
+        is read after the batch's walk (``_read_base``)."""
         hdr = src.read(OABBLK_SIZEOF)
         if len(hdr) < OABBLK_SIZEOF:
             return None
         f = [int.from_bytes(hdr[i:i + 4], "little") for i in (0, 4, 8, 12)]
-        if basesrc is None:
+        if not patch:
             flags, csize, dsize, crc = f
             if dsize > block_max or dsize > target_size or flags > 1 \
                     or (not flags and dsize != csize):
                 return None
-            window_size, ref = dsize, None
+            window_size, ssize = dsize, 0
         else:
             csize, dsize, ssize, crc = f
             flags = 1
             if dsize > block_max or dsize > target_size or ssize > block_max:
                 return None
             window_size = ((ssize + 32767) & ~32767) + dsize
-            ref = basesrc.read(ssize) if ssize else b""
-            if len(ref) < ssize:
-                return None
         window_bits = 17
         while window_bits < 25 and (1 << window_bits) < window_size:
             window_bits += 1
@@ -283,7 +292,29 @@ class OabDecompressor:
         if len(payload) < csize:
             return None
         return _Block(flags=flags, csize=csize, dsize=dsize, crc=crc,
-                      window_bits=window_bits, payload=payload, ref=ref)
+                      window_bits=window_bits, payload=payload, ssize=ssize,
+                      ref=None)
+
+    def _read_base(self, src, basesrc, blocks) -> int:
+        """The blocks' reference data in one read from the base, each block
+        given its slice; returns how many blocks got theirs whole. Where the
+        base ends short of block k's, ``src`` and ``basesrc`` are put back
+        to block k's header and reference data, as the reference loop,
+        which raises there, reads them."""
+        base_pos = basesrc.tell()
+        data = memoryview(basesrc.read(sum(b.ssize for b in blocks)))
+        at = 0
+        for k, blk in enumerate(blocks):
+            if at + blk.ssize > len(data):
+                src.seek(blk.hdr_pos)
+                basesrc.seek(base_pos + at)
+                break
+            blk.ref = data[at:at + blk.ssize]
+            at += blk.ssize
+        else:
+            k = len(blocks)
+        self.timings["base_bytes"] = self.timings.get("base_bytes", 0) + at
+        return k
 
     def _decode_batch(self, blocks):
         """Each block's bytes from K3: None for a stored block and for an

@@ -487,7 +487,13 @@ class CudaLzxEngine(_StreamEngine):
     ``k3_split_bytes`` (output bytes the frame lanes decoded) and
     ``k3_split_fallbacks`` (split streams that decoded serially), and
     each fallback's first reason under ``k3_split_fallbacks_<reason>``
-    (``cuda_lzx.SPLIT_REASONS``). A fallback is no decline."""
+    (``cuda_lzx.SPLIT_REASONS``). A fallback is no decline.
+
+    DELTA streams with reference data (OAB patch blocks) count in
+    ``timings`` too: ``ref_bytes``, the reference bytes of the lanes that K3
+    decoded and phase B resolved, and ``ref_lanes``, those lanes. K3 gets
+    each lane's reference length as its history budget; the bytes stay on
+    the host, where phase B reads them (``hists``)."""
 
     SPLIT_KEYS = ("k3_split_streams", "k3_split_frames", "k3_split_bytes",
                   "k3_split_fallbacks")
@@ -535,6 +541,13 @@ class CudaLzxEngine(_StreamEngine):
         for v in row6[row6 > cl.SPLIT_DONE]:
             key = "k3_split_fallbacks_" + cl.SPLIT_REASONS[int(v) & -int(v)]
             self.timings[key] = self.timings.get(key, 0) + 1
+
+    def _count_refs(self, lanes, job):
+        """``ref_bytes`` and ``ref_lanes`` of resolved lanes."""
+        refs = [len(job["refs"][i]) for i in lanes if job["refs"][i]]
+        if refs:
+            for key, v in (("ref_bytes", sum(refs)), ("ref_lanes", len(refs))):
+                self.timings[key] = self.timings.get(key, 0) + v
 
     # -- batching --------------------------------------------------------
 
@@ -623,6 +636,7 @@ class CudaLzxEngine(_StreamEngine):
             for part, i in zip(parts, lanes):
                 job["outs"][i] = part.tobytes()
         self.n_decoded += len(good)
+        self._count_refs(lanes, job)
         return True
 
     def _segmented(self, idxs, seg, job):
@@ -671,6 +685,7 @@ class CudaLzxEngine(_StreamEngine):
                     native.e8_decode_buf(parts[j], int(cnt[5, j]), 0)
                 job["outs"][i] = parts[j].tobytes()
         self.n_decoded += n
+        self._count_refs(idxs, job)
         return True
 
 

@@ -1,7 +1,8 @@
 """The port's spans and timings (``libmspack_tpu_torch/tracing.py``) and
 the benchmark's readers of them (``portbench/spans.py``).
 
-Under ``torch.profiler`` the planner, the CAB and OAB drivers and the
+Under ``torch.profiler`` the planner, the CAB and OAB drivers (a full
+download and a v3.2 patch, whose base read nests in its read-ahead) and the
 engines leave ``mspack.*`` spans in the trace, nested in their caller's;
 with no profiler they enter no ``record_function`` and, on the card, make
 no CUDA event. The timing keys that readers use keep their names either
@@ -23,6 +24,7 @@ from libmspack_tpu_torch.parallel import planner
 from libmspack_tpu_torch.parallel.cuda_pipeline import CudaLzxEngine
 from libmspack_tpu_torch.system import BytesSink
 from portbench import spans, trace
+from portbench.formats import oab_patch
 from portbench.tests.conftest import make_tiny_root
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,6 +46,16 @@ def _cab():
 
 def _oab():
     return oab_c.write_oab(_text(4, 3 * 8192 + 100), block_size=8192)
+
+
+def _oab_patch():
+    """A three-block v3.2 patch, each block's reference data the base block
+    at its offset, as the benchmark's writer makes them; with its base."""
+    base = _text(6, 3 * 8192)
+    target = bytes(b ^ 1 if i % 4096 == 7 else b for i, b in enumerate(base))
+    blocks = [oab_patch.patch_block(target[i:i + 8192], base[i:i + 8192])
+              for i in range(0, len(base), 8192)]
+    return oab_patch.write_patch(blocks, 8192, base, target), base, target
 
 
 def _planner(blob):
@@ -75,6 +87,15 @@ def _oab_decompress(blob):
     return d
 
 
+def _oab_patch_decompress(blob):
+    patch, base, target = blob
+    d = lt.create_oab_decompressor(engine="cuda", device="cpu", strict=True)
+    sink = BytesSink()
+    d.decompress_incremental(patch, base, sink)
+    assert sink.getvalue() == target
+    return d
+
+
 CALLS = {
     "planner": (_planner, _cab, {
         "mspack.planner.plan": ["mspack.planner.parse",
@@ -90,6 +111,11 @@ CALLS = {
     "oab": (_oab_decompress, _oab, {
         "mspack.oab.decompress": ["mspack.oab.read", "mspack.oab.write",
                                   "mspack.engine.decode"]}),
+    "oab_patch": (_oab_patch_decompress, _oab_patch, {
+        "mspack.oab.decompress_incremental": [
+            "mspack.oab.read", "mspack.oab.base", "mspack.oab.write",
+            "mspack.engine.decode"],
+        "mspack.oab.read": ["mspack.oab.base"]}),
 }
 ENGINE_STEPS = ["mspack.engine.pack", "mspack.engine.wait",
                 "mspack.engine.pull", "mspack.engine.resolve",
