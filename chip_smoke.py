@@ -639,8 +639,7 @@ def mszip_folders(total_mb):
     probe = create_cab_decompressor(engine="native")
     folders = []
     for fol in probe.open(blob).folders:
-        frames, fsizes = probe.collect_mszip_frames(fol)
-        folders.append(([f[2:] for f in frames], fsizes))
+        folders.append(probe.collect_mszip_frames(fol))
     print(f"host: open + collect_mszip_frames of {len(folders)} folders, "
           f"{sum(len(f) for f, _ in folders)} frames: "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
@@ -1605,13 +1604,14 @@ def planner_run(srcs, engine, device, strict=None):
 
 
 def plan_report(name, plan, launches):
-    """Print a cuda planner run's engine calls, lanes per launch, host
-    times and each engine's timings."""
+    """Print a cuda planner run's engine calls, collect routes, lanes per
+    launch, host times and each engine's timings."""
     per = {"mszip": "k1_inflate", "lzx": "k3_lzx", "quantum": "k4_qtm"}
     lanes = {c: (e.lanes if hasattr(e, "lanes") else
                  sum(len(j.frames) for j in plan.jobs if j.comp_name == c))
              for c, e in plan.engines.items()}
-    print(f"{name}: engine calls {dict(plan.calls)}, launches "
+    print(f"{name}: engine calls {dict(plan.calls)}, folders collected "
+          f"{dict(plan.collect_routes)}, launches "
           f"{ {c: launches[per[c]] for c in plan.engines} }, lanes "
           f"{lanes}; host ms: " + ", ".join(
               f"{k} {v:.1f}" for k, v in sorted(plan.timings.items())))

@@ -187,8 +187,7 @@ def bench_cuda(cab_path: str, corpus: bytes, dev, reps: int) -> float:
         cab = d.open(cab_path)
         folders = []
         for fol in cab.folders:
-            frames, sizes = d.collect_mszip_frames(fol)
-            folders.append(([f[2:] for f in frames], sizes))
+            folders.append(d.collect_mszip_frames(fol))
         outs = eng.decode_folders(folders)
         if outs is None or eng.redecoded or eng.declines:
             raise RuntimeError(f"CudaMszipEngine declined: redecoded "

@@ -55,6 +55,15 @@ the two calls; inside them ``mspack.cab.parse`` (the header and file walk),
 ``mspack.cab.collect`` (a folder's CFDATA blocks read and checked for the
 CUDA engine) and ``mspack.cab.write`` (a file's bytes into its sink from
 the decoded folder).
+
+The collect (``collect_mszip_frames``, ``collect_raw_blocks``) walks and
+checks a folder that lies in one cabinet in one native call
+(``native.cab_walk``); salvage mode, a folder over several cabinets and
+any folder the walk refuses are read by the block reader, as in the
+reference driver. ``collect_routes`` counts the folders of each route
+(``collect_native``, ``collect_python``). An MSZIP folder's frames come
+without their 'CK' signature, as every engine takes them (the JAX
+package's keep it).
 """
 from __future__ import annotations
 
@@ -254,6 +263,9 @@ class CabDecompressor:
         # each device path declined, {path: "FallbackError: msg"}
         self.strict = strict_mode(strict)
         self.fallback_reasons: dict[str, str] = {}
+        # folders whose CFDATA blocks were collected by the native walk
+        # ("collect_native") or the block reader ("collect_python")
+        self.collect_routes: collections.Counter = collections.Counter()
         self.cuda_engine = None       # lazy CudaMszipEngine (host phase B)
         self.cuda_lzx_engine = None   # lazy CudaLzxEngine
         self.cuda_qtm_engine = None   # lazy CudaQtmEngine
@@ -796,8 +808,7 @@ class CabDecompressor:
         collected = self.collect_mszip_frames(fol)
         if collected is None:
             return None
-        frames, sizes = collected
-        streams = [f[2:] for f in frames]
+        streams, sizes = collected
         try:
             from .. import native
             total = sum(sizes)
@@ -875,8 +886,8 @@ class CabDecompressor:
         ``fallback_reasons`` and raises ``FallbackError`` under strict."""
         path = self._CUDA_PATHS[ct][0]
         with span("mspack.cab.collect"):
-            collected = (self.collect_mszip_frames if ct == COMPTYPE_MSZIP
-                         else self.collect_raw_blocks)(fol)
+            collected = self.collect_mszip_frames(fol) \
+                if ct == COMPTYPE_MSZIP else self.collect_raw_blocks(fol)
         if collected is None:
             note_fallback(self, path, "CFDATA blocks could not be collected")
             return None
@@ -889,9 +900,10 @@ class CabDecompressor:
         return out
 
     def _decode_cuda(self, eng, fol: CabFolder, ct: int, blocks, sizes):
-        """The folder's bytes from ``eng``, or None where it declines."""
+        """The folder's bytes from ``eng``, or None where it declines
+        (``blocks``: an MSZIP folder's frames without their CK)."""
         if ct == COMPTYPE_MSZIP:
-            outs = eng.decode_folders([([f[2:] for f in blocks], sizes)])
+            outs = eng.decode_folders([(blocks, sizes)])
             return None if outs is None else outs[0]
         wb = (fol.comp_type >> 8) & 0x1F
         if ct == COMPTYPE_LZX:
@@ -920,15 +932,15 @@ class CabDecompressor:
         from ..ops.lzx import lzx_stream_decode
 
         path = "mszip_torch" if ct == COMPTYPE_MSZIP else "lzx_torch"
-        collected = (self.collect_mszip_frames if ct == COMPTYPE_MSZIP
-                     else self.collect_raw_blocks)(fol)
+        collected = self.collect_mszip_frames(fol) \
+            if ct == COMPTYPE_MSZIP else self.collect_raw_blocks(fol)
         if collected is None:
             note_fallback(self, path, "CFDATA blocks could not be collected")
             return None
         blocks, sizes = collected
         declined = collections.Counter()
         if ct == COMPTYPE_MSZIP:
-            out = inflate_folder([f[2:] for f in blocks], sizes,
+            out = inflate_folder(blocks, sizes,
                                  device=self.device, declines=declined,
                                  timings=self.torch_timings)
         else:
@@ -966,6 +978,69 @@ class CabDecompressor:
     def collect_raw_blocks(self, fol: CabFolder):
         """Read and checksum-validate all CFDATA blocks of a folder.
         Returns ([block_bytes...], [uncomp_sizes]) or None."""
+        return self._collect(fol, False)
+
+    def collect_mszip_frames(self, fol: CabFolder):
+        """Read and validate all CFDATA blocks of an MSZIP folder.
+
+        Returns ([frame_bytes_without_CK, ...], [uncomp_sizes]) or None if
+        anything needs the scalar path (checksum failure, missing CK)."""
+        return self._collect(fol, True)
+
+    def _collect(self, fol: CabFolder, mszip: bool):
+        """A folder's blocks from one native walk where it follows them
+        exactly, else from the block reader a block at a time; counted in
+        ``collect_routes`` as ``collect_native`` or ``collect_python``."""
+        walked = self._collect_native(fol, mszip)
+        if walked is not None:
+            self.collect_routes["collect_native"] += 1
+            return walked
+        self.collect_routes["collect_python"] += 1
+        collected = self._collect_blocks(fol)
+        if mszip and collected is not None:
+            # every frame must start with the CK signature for the fast
+            # path (the scalar path handles realign-scanning of damaged
+            # streams)
+            frames, sizes = collected
+            if any(f[:2] != b"CK" for f in frames):
+                return None
+            return [f[2:] for f in frames], sizes
+        return collected
+
+    def _collect_native(self, fol: CabFolder, mszip: bool):
+        """The folder's blocks (MSZIP frames without their CK) and sizes
+        from ``native.cab_walk``; None where the block reader has to
+        read them: salvage mode (it accepts what the walk refuses), a
+        folder over several cabinets or merged with another, no image or
+        no native library, and every folder the walk refuses. The walk
+        always checks the checksums, so a bad one in fix-MSZIP mode reaches
+        the reader, which warns and goes on."""
+        if self.salvage or len(fol.data) != 1 or fol.merge_prev or \
+                fol.merge_next:
+            return None
+        cab = fol.data[0].cab
+        img = self._cab_image(cab)
+        if img is None:
+            return None
+        from .. import native
+        if not native.available():
+            return None
+        walked = native.cab_walk(
+            img, fol.data[0].offset, fol.num_blocks,
+            COMPTYPE_MSZIP if mszip else fol.comp_type & COMPTYPE_MASK,
+            cab.block_resv)
+        if walked is None:
+            return None
+        offs, lens, sizes = (a.tolist() for a in walked)
+        skip = 2 if mszip else 0
+        src = cab.source_ref if isinstance(cab.source_ref, bytes) \
+            else memoryview(img)
+        return [bytes(src[o + skip:o + n]) for o, n in zip(offs, lens)], \
+            sizes
+
+    def _collect_blocks(self, fol: CabFolder):
+        """Every CFDATA block of the folder through ``_read_block``:
+        ([block_bytes...], [uncomp_sizes]), or None on its first error."""
         d = _DecompState()
         d.folder = fol
         d.comp_type = fol.comp_type
@@ -984,38 +1059,8 @@ class CabDecompressor:
                 blocks.append(d.inbuf)
                 sizes.append(d.outlen - prev)
         except MSPackError:
-            return None
-        return blocks, sizes
-
-    def collect_mszip_frames(self, fol: CabFolder):
-        """Read and validate all CFDATA blocks of an MSZIP folder.
-
-        Returns ([frame_bytes_with_CK, ...], [uncomp_sizes]) or None if
-        anything needs the scalar path (checksum failure, missing CK)."""
-        d = _DecompState()
-        d.folder = fol
-        d.comp_type = fol.comp_type
-        d.incab = fol.data[0].cab
-        try:
-            d.insrc = fol.data[0].cab.open_stream()
-            d.insrc.seek(fol.data[0].offset)
-        except MSPackError:
-            return None
-        frames = []
-        sizes = []
-        try:
-            for _ in range(fol.num_blocks):
-                prev = d.outlen
-                self._read_block(d)
-                frames.append(d.inbuf)
-                sizes.append(d.outlen - prev)
-        except MSPackError:
             return None  # scalar path will surface the exact error
-        # every frame must start with the CK signature for the fast path
-        # (the scalar path handles realign-scanning of damaged streams)
-        if any(f[:2] != b"CK" for f in frames):
-            return None
-        return frames, sizes
+        return blocks, sizes
 
     def _init_folder_state(self, fol: CabFolder) -> _DecompState:
         d = _DecompState()

@@ -11,7 +11,9 @@ port's build directory, every wrapper of the JAX module is here, and
 instead of whole-window rows.
 ``FolderBatch``/``mszip_folders`` (``libmspack_tpu/native/__init__.py:
 166-213``), ``lzx_decode`` (``:252-266``) and ``qtm_decode`` (``:510-517``)
-serve the corpus planner (``parallel/planner.py``).
+serve the corpus planner (``parallel/planner.py``); ``cab_walk``, the
+CFDATA walk of ``cab_pipeline`` alone, serves the CAB driver's collect
+(``formats/cab.py``), which the planner calls.
 """
 from __future__ import annotations
 
@@ -64,6 +66,12 @@ def lib():
         lib_.msp_lzx_encode.restype = ctypes.c_int64
         lib_.msp_cab_mszip_pipeline.restype = ctypes.c_int
         lib_.msp_cab_pipeline.restype = ctypes.c_int
+        lib_.msp_cab_walk.restype = ctypes.c_int
+        lib_.msp_cab_walk.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32)]
         lib_.msp_qtm_decode.restype = ctypes.c_int
         lib_.msp_qtm_encode.restype = ctypes.c_int64
         lib_.msp_resolve_trace.restype = ctypes.c_int
@@ -323,6 +331,28 @@ def lzx_chunks_into(stream, chunk_offsets: list[int], window_bits: int,
     started = any(intel[2 * i] for i in range(n))
     has_fsz = any(intel[2 * i + 1] for i in range(n))
     return True, started and has_fsz
+
+
+def cab_walk(cab, data_offset: int, nblocks: int, codec: int,
+             block_resv: int, verify: bool = True):
+    """One folder's CFDATA walk alone, with no decode: its ``nblocks``
+    blocks from ``data_offset`` in the cabinet image ``cab`` (bytes or a
+    uint8 numpy view). Returns (payload offsets into ``cab``, payload
+    lengths, uncompressed sizes) as numpy arrays, or None where a block is
+    not one the walk follows exactly: a bad checksum (``verify``), a block
+    split across cabinets, one over CAB's block or input limit, one past
+    the image's end, an MSZIP block (``codec`` 1) without 'CK'."""
+    import numpy as np
+    offs = np.empty(nblocks, np.int64)
+    lens = np.empty(nblocks, np.int32)
+    ulens = np.empty(nblocks, np.int32)
+    r = lib().msp_cab_walk(
+        _as_ptr(cab), len(cab), data_offset, nblocks, codec, block_resv,
+        1 if verify else 0,
+        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ulens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return None if r else (offs, lens, ulens)
 
 
 def cab_pipeline(cab, data_offsets: list[int], nblocks: list[int],

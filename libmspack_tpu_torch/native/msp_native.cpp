@@ -1206,7 +1206,7 @@ struct Encoder {
 namespace cabpipe {
 
 struct Frame {
-  const uint8_t* p;  // CFDATA payload (starts with 'CK')
+  const uint8_t* p;  // CFDATA payload (an MSZIP one starts with 'CK')
   uint32_t clen;
   uint32_t ulen;
   uint32_t cksum;
@@ -1214,7 +1214,20 @@ struct Frame {
 
 static uint32_t cab_checksum(const uint8_t* d, size_t n, uint32_t ck) {
   size_t full = n & ~(size_t)3;
-  for (size_t i = 0; i < full; i += 4)
+  size_t i = 0;
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
+  // the little-endian words 8 bytes at a time (a loop the compiler
+  // vectorises): the two halves of the 64-bit XOR are the XORs of the
+  // even and the odd words
+  uint64_t acc = 0;
+  for (; i + 8 <= full; i += 8) {
+    uint64_t w;
+    memcpy(&w, d + i, 8);
+    acc ^= w;
+  }
+  ck ^= (uint32_t)acc ^ (uint32_t)(acc >> 32);
+#endif
+  for (; i < full; i += 4)
     ck ^= (uint32_t)d[i] | ((uint32_t)d[i + 1] << 8) |
           ((uint32_t)d[i + 2] << 16) | ((uint32_t)d[i + 3] << 24);
   size_t rem = n - full;
@@ -1227,6 +1240,47 @@ static uint32_t cab_checksum(const uint8_t* d, size_t n, uint32_t ck) {
   else if (rem == 1)
     ul = d[full];
   return ck ^ ul;
+}
+
+// The block's stored checksum against its payload and header tail
+// (cabd.c:1440-1446); a stored 0 is no checksum.
+static bool checksum_ok(const Frame& frm) {
+  if (!frm.cksum) return true;
+  uint32_t sum = cab_checksum(frm.p, frm.clen, 0);
+  uint8_t tail[4] = {(uint8_t)(frm.clen & 0xFF), (uint8_t)(frm.clen >> 8),
+                     (uint8_t)(frm.ulen & 0xFF), (uint8_t)(frm.ulen >> 8)};
+  return cab_checksum(tail, 4, sum) == frm.cksum;
+}
+
+// Walk one folder's CFDATA chain of `nblocks` blocks from `off` into
+// `fr`, as cabd.c:1362-1460 reads blocks that lie in one cabinet.
+// Returns 0, or the code of the first block it does not follow exactly:
+// 2 the image ends inside it, 3 split across cabinets (uncomp 0) or over
+// CAB's block or input limit, 4 an MSZIP block (codec 1) without 'CK',
+// 6 a bad checksum (checked only where `verify`).
+static int walk_folder(const uint8_t* cab, uint64_t cab_len, uint64_t off,
+                       int nblocks, int codec, int block_resv, bool verify,
+                       std::vector<Frame>& fr) {
+  fr.clear();
+  fr.reserve(nblocks > 0 ? nblocks : 0);
+  for (int b = 0; b < nblocks; b++) {
+    if (off + 8 > cab_len) return 2;
+    uint32_t cksum = (uint32_t)cab[off] | ((uint32_t)cab[off + 1] << 8) |
+                     ((uint32_t)cab[off + 2] << 16) |
+                     ((uint32_t)cab[off + 3] << 24);
+    uint32_t clen = (uint32_t)cab[off + 4] | ((uint32_t)cab[off + 5] << 8);
+    uint32_t ulen = (uint32_t)cab[off + 6] | ((uint32_t)cab[off + 7] << 8);
+    off += 8 + (uint32_t)block_resv;
+    if (off + clen > cab_len) return 2;
+    if (ulen == 0 || ulen > 32768) return 3;   // split/oversize
+    if (clen > 32768 + 6144) return 3;
+    const uint8_t* p = cab + off;
+    off += clen;
+    if (codec == 1 && (clen < 2 || p[0] != 'C' || p[1] != 'K')) return 4;
+    fr.push_back({p, clen, ulen, cksum});
+    if (verify && !checksum_ok(fr.back())) return 6;
+  }
+  return 0;
 }
 
 }  // namespace cabpipe
@@ -2768,6 +2822,27 @@ int64_t msp_lzx_encode(const uint8_t* data, uint64_t len, int window_bits,
 }
 
 
+// One folder's CFDATA walk alone (cabpipe::walk_folder), for callers that
+// decode elsewhere: block b's payload starts at cab[pay_off[b]], holds
+// pay_len[b] bytes and decodes to ulen[b]. Returns 0, or the walk's code
+// for a folder the caller must read with the exact-semantics driver.
+int msp_cab_walk(const uint8_t* cab, uint64_t cab_len, int64_t data_offset,
+                 int nblocks, int codec, int block_resv, int verify,
+                 int64_t* pay_off, int32_t* pay_len, int32_t* ulen) {
+  if (data_offset < 0) return 2;
+  std::vector<cabpipe::Frame> fr;
+  int r = cabpipe::walk_folder(cab, cab_len, (uint64_t)data_offset, nblocks,
+                               codec, block_resv, verify != 0, fr);
+  if (r) return r;
+  for (size_t b = 0; b < fr.size(); b++) {
+    pay_off[b] = (int64_t)(fr[b].p - cab);
+    pay_len[b] = (int32_t)fr[b].clen;
+    ulen[b] = (int32_t)fr[b].ulen;
+  }
+  return 0;
+}
+
+
 // Whole-cabinet decode (see cabpipe above): CFDATA walk + checksum +
 // per-folder codec decode, folder-parallel with no phase barrier.
 // comp_types[f] is the raw CFFOLDER value (low byte codec 0/1/2/3,
@@ -2788,28 +2863,16 @@ int msp_cab_pipeline(const uint8_t* cab, uint64_t cab_len,
     folder_out_offsets[f] = out_total;
     int codec = comp_types[f] & 0x0F;
     if (codec > 3) return 8;
-    uint64_t off = (uint64_t)data_offsets[f];
     auto& fr = folders[f];
-    fr.reserve(nblocks[f]);
+    // the checksums are verified below, folder-parallel
+    int r = cabpipe::walk_folder(cab, cab_len, (uint64_t)data_offsets[f],
+                                 nblocks[f], codec, block_resv, false, fr);
+    if (r) return r;
     uint64_t csum_bytes = 0;
-    for (int b = 0; b < nblocks[f]; b++) {
-      if (off + 8 > cab_len) return 2;
-      uint32_t cksum = (uint32_t)cab[off] | ((uint32_t)cab[off + 1] << 8) |
-                       ((uint32_t)cab[off + 2] << 16) |
-                       ((uint32_t)cab[off + 3] << 24);
-      uint32_t clen = (uint32_t)cab[off + 4] | ((uint32_t)cab[off + 5] << 8);
-      uint32_t ulen = (uint32_t)cab[off + 6] | ((uint32_t)cab[off + 7] << 8);
-      off += 8 + (uint32_t)block_resv;
-      if (off + clen > cab_len) return 2;
-      if (ulen == 0 || ulen > 32768) return 3;   // split/oversize
-      if (clen > 32768 + 6144) return 3;
-      const uint8_t* p = cab + off;
-      off += clen;
-      if (codec == 1 && (clen < 2 || p[0] != 'C' || p[1] != 'K')) return 4;
-      if (codec == 0 && clen != ulen) return 4;
-      fr.push_back({p, clen, ulen, cksum});
-      out_total += ulen;
-      csum_bytes += clen;
+    for (auto& frm : fr) {
+      if (codec == 0 && frm.clen != frm.ulen) return 4;
+      out_total += frm.ulen;
+      csum_bytes += frm.clen;
     }
     // only LZX/Quantum stage contiguous input; Quantum gets a 0xFF
     // realign trailer per block (cabd.c:1327-1332)
@@ -2837,13 +2900,7 @@ int msp_cab_pipeline(const uint8_t* cab, uint64_t cab_len,
       // checksum pass (all codecs)
       if (verify) {
         for (auto& frm : folders[f]) {
-          if (!frm.cksum) continue;
-          uint32_t sum = cabpipe::cab_checksum(frm.p, frm.clen, 0);
-          uint8_t tail[4] = {(uint8_t)(frm.clen & 0xFF),
-                             (uint8_t)(frm.clen >> 8),
-                             (uint8_t)(frm.ulen & 0xFF),
-                             (uint8_t)(frm.ulen >> 8)};
-          if (cabpipe::cab_checksum(tail, 4, sum) != frm.cksum) {
+          if (!cabpipe::checksum_ok(frm)) {
             err.store(6);
             return;
           }

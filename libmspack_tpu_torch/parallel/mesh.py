@@ -681,7 +681,7 @@ def decode_cab_sharded(mesh: Mesh, path_or_bytes) -> dict | None:
                 return mesh.decline("decode_cab_sharded", NeedFallback(
                     "CFDATA blocks could not be collected"))
             frames, sizes = collected
-            blob = decode_frames_ring(mesh, [f[2:] for f in frames], sizes)
+            blob = decode_frames_ring(mesh, frames, sizes)
             if blob is None:
                 return None
             folder_bytes[fi] = blob

@@ -37,8 +37,11 @@ Copied from ``libmspack_tpu/parallel/planner.py``. Besides the imports:
   card.
 * the plan keeps what a run did: ``timings`` (host ms of the parse, the
   CFDATA collect and each route), ``engines`` and ``calls`` (the CUDA
-  engine and its calls per codec); ``archive_files`` is the last step of
-  ``extract_corpus`` on its own.
+  engine and its calls per codec) and ``collect_routes``
+  (``collect_native`` and ``collect_python``, the folders whose blocks
+  the driver's collect took from one native walk or from its block
+  reader); ``archive_files`` is the last step of ``extract_corpus`` on
+  its own.
 * spans (``tracing``): ``mspack.planner.plan``, ``.execute`` and ``.files``
   around the three steps; inside them ``mspack.planner.parse`` and
   ``.collect`` once an archive (``parse_ms``, ``collect_ms``) and
@@ -96,6 +99,9 @@ class Plan:
     engines: dict = dataclasses.field(default_factory=dict)
     calls: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    # folders collected by the native walk or the block reader
+    collect_routes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
     # {path: "FallbackError: msg"} of the device paths that declined
     fallback_reasons: dict = dataclasses.field(default_factory=dict)
     strict: bool = False
@@ -122,9 +128,8 @@ def plan_archives(paths: List[PathOrBytes]) -> Plan:
                         fallback.append((ai, fi))
                         continue
                     frames, sizes = collected
-                    jobs.append(FolderJob(ai, fi, "mszip",
-                                          [f[2:] for f in frames], None, sizes,
-                                          fol.comp_type))
+                    jobs.append(FolderJob(ai, fi, "mszip", frames, None,
+                                          sizes, fol.comp_type))
                 elif ct in (2, 3):
                     collected = d.collect_raw_blocks(fol)
                     if collected is None:
@@ -144,7 +149,8 @@ def plan_archives(paths: List[PathOrBytes]) -> Plan:
                                           fol.comp_type))
                 else:
                     fallback.append((ai, fi))
-    return Plan(paths, cabinets, jobs, fallback, timings)
+    return Plan(paths, cabinets, jobs, fallback, timings,
+                collect_routes=d.collect_routes)
 
 
 def _native_archive_pipelines(plan: Plan, results: dict, n_threads,

@@ -323,9 +323,8 @@ def test_port_imports_no_jax():
         "eng = cuda_pipeline.CudaMszipEngine('cpu', phase_b='device')\n"
         "blob = cab_c.write_cab(files=[('j.txt', data)], "
         "compression='mszip')\n"
-        "frames, sizes = d.collect_mszip_frames(d.open(blob).folders[0])\n"
-        "assert eng.decode_folders([([f[2:] for f in frames], sizes)])"
-        " == [data]\n"
+        "folder = d.collect_mszip_frames(d.open(blob).folders[0])\n"
+        "assert eng.decode_folders([folder]) == [data]\n"
         "chm = chm_c.write_chm([('/h.html', data)])\n"
         "c = lt.create_chm_decompressor(engine='cuda', device='cpu')\n"
         "assert one(c, chm) == data and c.cuda_engine.n_decoded == 1\n"

@@ -126,6 +126,8 @@ def test_cuda_route_one_call_per_codec_group():
     planner.execute(plan, engine="cuda", device="cpu")
     # MSZIP once; LZX at 2^15 and 2^21; Quantum once (both at 2^16)
     assert dict(plan.calls) == {"mszip": 1, "lzx": 2, "quantum": 1}
+    # every folder collected by the walk, but the two parts of the span
+    assert plan.collect_routes == {"collect_native": 6, "collect_python": 2}
     assert plan.engines["lzx"].n_decoded == 2
     # e.txt's lane and the span's second part, which K4 flags
     assert plan.engines["quantum"].lanes == 2
@@ -325,8 +327,7 @@ def _mszip_folders():
         for lo, hi in ((0, 70000), (70000, 75000), (100000, 200000))])
     out = []
     for fol in d.open(blob).folders:
-        frames, sizes = d.collect_mszip_frames(fol)
-        out.append(([f[2:] for f in frames], sizes))
+        out.append(d.collect_mszip_frames(fol))
     return out
 
 
